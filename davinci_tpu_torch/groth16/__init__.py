@@ -1,0 +1,2 @@
+from davinci_tpu_torch.groth16.r1cs import ConstraintSystem, LinComb
+from davinci_tpu_torch.groth16.core import Groth16, ProvingKey, VerifyingKey, Proof

@@ -1,0 +1,488 @@
+"""Groth16 setup / prove / verify on one device.  Counterpart of
+`davinci_tpu/groth16/core.py` (the plain, uncommitted proof).
+
+Proving runs on the device: the witness reduction, the quotient
+polynomial by coset NTTs (the coset vanishing polynomial is constant on
+the coset, so the division is one scalar multiply), and the witness-vector
+MSMs over the proving key.  Setup evaluates the QAP on the host and makes
+the key's bases on the device with fixed-base window tables (the route the
+reference takes on its accelerator); on a CPU device it takes the
+reference's CPU route, a batched double-and-add.  Verification is a host
+pairing check.
+"""
+
+from __future__ import annotations
+
+import functools
+import random as _random
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from davinci_tpu_torch import fields as F
+from davinci_tpu_torch import log
+from davinci_tpu_torch.curves import AffinePoint
+from davinci_tpu_torch.ec import get_device_curve
+from davinci_tpu_torch.groth16.bases import EncodedBases
+from davinci_tpu_torch.groth16.witness_dev import (
+    DeviceCSR,
+    matvec_device,
+    satisfied_device,
+)
+from davinci_tpu_torch.msm import msm
+from davinci_tpu_torch.msm.pippenger import (
+    NBUCKETS,
+    WINDOW_BITS,
+    pack_scalars,
+    scalars_to_limbs,
+    unpack_limbs,
+)
+from davinci_tpu_torch.ntt import get_device_ntt
+from davinci_tpu_torch.pairing import PAIRINGS
+
+
+@dataclass(eq=False)
+class ProvingKey:
+    """MSM base sets as EncodedBases.  Zero polynomials are pruned: a/b
+    bases cover only wires with u_i != 0 / v_i != 0 (their witness scalars
+    are gathered via a_indices/b_indices at prove time)."""
+
+    alpha_g1: AffinePoint
+    beta_g1: AffinePoint
+    beta_g2: AffinePoint
+    delta_g1: AffinePoint
+    delta_g2: AffinePoint
+    a_g1: EncodedBases       # [u_i(tau)] G1, i in a_indices
+    b_g1: EncodedBases       # [v_i(tau)] G1, i in b_indices
+    b_g2: EncodedBases       # [v_i(tau)] G2, i in b_indices
+    k_g1: EncodedBases       # [(beta u + alpha v + w)/delta] G1, k_priv_indices
+    z_g1: EncodedBases       # [tau^j Z(tau)/delta] G1, j < N-1
+    domain_log: int
+    a_indices: object = None  # np.int64 witness indices for a_g1 (None = all)
+    b_indices: object = None
+    k_commit_g1: EncodedBases = None
+    k_commit_eta_g1: EncodedBases = None
+    k_priv_indices: list = None  # witness indices matching k_g1
+
+
+@dataclass(eq=False)
+class VerifyingKey:
+    alpha_g1: AffinePoint
+    beta_g2: AffinePoint
+    gamma_g2: AffinePoint
+    delta_g2: AffinePoint
+    k_pub_g1: list      # [(beta u + alpha v + w)/gamma] G1, ONE + publics
+    k_challenge_g1: AffinePoint = None
+    eta_g2: AffinePoint = None
+
+
+@dataclass(eq=False)
+class Proof:
+    a: AffinePoint
+    b: AffinePoint  # G2
+    c: AffinePoint
+
+
+def _fixed_base_table_scan(dc, bx, by, bz):
+    """(W, ...) per-window bases -> (W, NBUCKETS, ...) window tables via a
+    log-depth Hillis-Steele prefix scan (12 batched adds, all windows at
+    once)."""
+    W = bx.shape[0]
+    lane = torch.arange(NBUCKETS, device=bx.device).expand(W, NBUCKETS)
+    bw = tuple(
+        a[:, None].expand((W, NBUCKETS) + a.shape[1:]) for a in (bx, by, bz)
+    )
+    ident = dc.identity((W, NBUCKETS))
+    cur = dc.select(lane >= 1, bw, ident)
+    stride = 1
+    while stride < NBUCKETS:
+        shifted = tuple(torch.roll(a, stride, dims=1) for a in cur)
+        shifted = dc.select(lane >= stride, shifted, ident)
+        cur = dc.add(cur, shifted)
+        stride <<= 1
+    return cur
+
+
+def _fixed_base_table(dc, gspec):
+    """Fixed-base window table T[w, d] = d * 2^(12w) * G for every
+    base-2^12 scalar window w and digit d, as (W, 4096, ...) coordinate
+    tensors.  The host makes the W row bases; the device builds all rows
+    in one scan."""
+    W = -(-gspec.r.bit_length() // WINDOW_BITS)
+    bases = []
+    base_pt = gspec.gen
+    for _ in range(W):
+        bases.append(base_pt)
+        base_pt = base_pt.mul(1 << WINDOW_BITS)
+    return _fixed_base_table_scan(dc, *dc.encode_points(bases))
+
+
+def _fixed_base_mul(dc, tx, ty, tz, S):
+    """[s_i * G] from the window table: S (n, W) base-2^12 digits ->
+    projective (n, ...) batch.  W gathers + a log-tree of adds."""
+    n, W = S.shape
+    NB = tx.shape[1]
+    tail = tx.shape[2:]
+    idx = (torch.arange(W, device=S.device)[:, None] * NB
+           + S.T.to(torch.int64)).reshape(-1)
+    parts = tuple(
+        t.reshape((W * NB,) + tail)[idx].reshape((W, n) + tail)
+        for t in (tx, ty, tz)
+    )
+    # pad the window axis to a power of two with identities, then halve
+    Wp = 1 << (W - 1).bit_length() if W > 1 else 1
+    if Wp != W:
+        ident = dc.identity((Wp - W, n))
+        parts = tuple(torch.cat([p, i]) for p, i in zip(parts, ident))
+    while Wp > 1:
+        half = Wp // 2
+        parts = dc.add(tuple(p[:half] for p in parts),
+                       tuple(p[half:] for p in parts))
+        Wp = half
+    return tuple(p[0] for p in parts)
+
+
+class Groth16:
+    """Groth16 over one pairing curve on one device."""
+
+    def __init__(self, curve_name: str, device="cpu"):
+        self.curve_name = curve_name
+        self.device = torch.device(device)
+        self.ctx = PAIRINGS[curve_name]
+        self.fr = {
+            "bn254": F.bn254_fr,
+            "bls12_377": F.bls12_377_fr,
+            "bls12_381": F.bls12_381_fr,
+            "bw6_761": F.bw6_761_fr,
+        }[curve_name]
+        self.g1 = self.ctx.g1
+        self.g2 = self.ctx.g2
+        self.dc = get_device_curve(self.g1, self.device)
+        self.dc2 = get_device_curve(self.g2, self.device)
+        self.ntt = get_device_ntt(self.fr, self.device)
+        self.r = self.fr.p
+        self._tables = {}
+
+    # ------------------------------------------------------------------ setup
+
+    def setup(self, cs, rng=None):
+        """Trusted setup for the given ConstraintSystem (structure only)."""
+        rng = rng or _random.Random(0x5E7)
+        r = self.r
+        n_cons = len(cs.constraints)
+        m = cs.num_variables
+        logN = max(1, (n_cons - 1).bit_length()) if n_cons > 1 else 1
+        N = 1 << logN
+
+        tau = rng.randrange(1, r)
+        alpha = rng.randrange(1, r)
+        beta = rng.randrange(1, r)
+        gamma = rng.randrange(1, r)
+        delta = rng.randrange(1, r)
+
+        # Lagrange values L_j(tau) = Z(tau) * w^j / (N * (tau - w^j));
+        # inverses via one batched Montgomery trick
+        w = self.fr.root_of_unity(logN)
+        z_tau = (pow(tau, N, r) - 1) % r
+        ninv = pow(N, -1, r)
+        wjs = [1] * N
+        for j in range(1, N):
+            wjs[j] = wjs[j - 1] * w % r
+        dens = [(tau - wj) % r for wj in wjs]
+        prefix = [1] * (N + 1)
+        for j in range(N):
+            prefix[j + 1] = prefix[j] * dens[j] % r
+        inv_all = pow(prefix[N], -1, r)
+        inv_dens = [0] * N
+        for j in reversed(range(N)):
+            inv_dens[j] = inv_all * prefix[j] % r
+            inv_all = inv_all * dens[j] % r
+        lag = [z_tau * wjs[j] % r * inv_dens[j] % r * ninv % r for j in range(N)]
+
+        # u_i(tau), v_i(tau), w_i(tau): sparse accumulation over the CSR
+        lag_arr = np.empty(N, object)
+        lag_arr[:] = lag
+        uvw = []
+        for idx, coeff, offs in cs._flat_matrices():
+            acc = np.zeros(m, object)
+            if len(idx):
+                rows = np.repeat(np.arange(len(offs) - 1), np.diff(offs))
+                np.add.at(acc, idx, coeff * lag_arr[rows])
+            uvw.append([int(x) % r for x in acc])
+        u, v, wv = uvw
+
+        ginv = pow(gamma, -1, r)
+        dinv = pow(delta, -1, r)
+        npub = 1 + cs.num_public
+        k_pub = [
+            (beta * u[i] + alpha * v[i] + wv[i]) % r * ginv % r
+            for i in range(npub)
+        ]
+        committed = list(getattr(cs, "committed", []) or [])
+        chal_idx = getattr(cs, "challenge_idx", None)
+        gamma_side = set(committed) | ({chal_idx} if chal_idx is not None else set())
+        k_priv_pairs = [
+            (i, kv)
+            for i in range(npub, m)
+            if i not in gamma_side
+            and (kv := (beta * u[i] + alpha * v[i] + wv[i]) % r * dinv % r)
+        ]
+        k_priv_indices = [i for i, _ in k_priv_pairs]
+        k_priv = [kv for _, kv in k_priv_pairs]
+        eta = rng.randrange(1, r)
+        k_commit = [
+            (beta * u[i] + alpha * v[i] + wv[i]) % r * ginv % r
+            for i in committed
+        ]
+        k_chal = (
+            (beta * u[chal_idx] + alpha * v[chal_idx] + wv[chal_idx])
+            % r * ginv % r
+            if chal_idx is not None
+            else None
+        )
+        # [tau^j * Z(tau)/delta], j in 0..N-2
+        zd = z_tau * dinv % r
+        z_scalars = []
+        t_acc = zd
+        for j in range(N - 1):
+            z_scalars.append(t_acc)
+            t_acc = t_acc * tau % r
+
+        # prune zero polynomials: wires absent from A (resp. B) contribute
+        # nothing to the A/B MSMs
+        a_indices = [i for i in range(m) if u[i]]
+        b_indices = [i for i in range(m) if v[i]]
+        g1e = functools.partial(self._batch_mul_enc, self.dc, self.g1)
+        g2e = functools.partial(self._batch_mul_enc, self.dc2, self.g2)
+        v_nz = [v[i] for i in b_indices]
+        pk = ProvingKey(
+            alpha_g1=self.g1.gen.mul(alpha),
+            beta_g1=self.g1.gen.mul(beta),
+            beta_g2=self.g2.gen.mul(beta),
+            delta_g1=self.g1.gen.mul(delta),
+            delta_g2=self.g2.gen.mul(delta),
+            a_g1=g1e([u[i] for i in a_indices]),
+            b_g1=g1e(v_nz),
+            b_g2=g2e(v_nz),
+            k_g1=g1e(k_priv),
+            z_g1=g1e(z_scalars),
+            domain_log=logN,
+            a_indices=np.asarray(a_indices, np.int64),
+            b_indices=np.asarray(b_indices, np.int64),
+            k_commit_g1=g1e(k_commit),
+            k_commit_eta_g1=g1e([x * eta % r for x in k_commit]),
+            k_priv_indices=k_priv_indices,
+        )
+        vk = VerifyingKey(
+            alpha_g1=pk.alpha_g1,
+            beta_g2=pk.beta_g2,
+            gamma_g2=self.g2.gen.mul(gamma),
+            delta_g2=pk.delta_g2,
+            k_pub_g1=g1e(k_pub).to_host_points(self.dc),
+            k_challenge_g1=(
+                self.g1.gen.mul(k_chal) if k_chal is not None else None
+            ),
+            eta_g2=self.g2.gen.mul(eta),
+        )
+        return pk, vk
+
+    # bounds on the device working set of one batch-mul chunk
+    _BATCH_MUL_CHUNK = 65536
+    _BATCH_MUL_CHUNK_G2 = 16384
+
+    def _batch_mul_enc(self, dc, gspec, scalars) -> EncodedBases:
+        """[s * gen] for a scalar list as EncodedBases: on an accelerator,
+        per-window gathers from a fixed-base table and a log-tree of adds;
+        on the CPU, a batched double-and-add.  Affine normalisation runs
+        batched on the device either way."""
+        if not scalars:
+            return EncodedBases.empty(dc)
+        n = len(scalars)
+        max_chunk = (
+            self._BATCH_MUL_CHUNK_G2
+            if dc.ops.coord_ndim == 2
+            else self._BATCH_MUL_CHUNK
+        )
+        chunk = min(max_chunk, 1 << (n - 1).bit_length() if n > 1 else 1)
+        fixed_base = dc.device.type != "cpu"
+        if fixed_base:
+            if dc not in self._tables:
+                self._tables[dc] = _fixed_base_table(dc, gspec)
+            table = self._tables[dc]
+        else:
+            base = dc.encode_points([gspec.gen] * chunk)
+        outs = []
+        for ofs in range(0, n, chunk):
+            part = list(scalars[ofs : ofs + chunk])
+            part += [0] * (chunk - len(part))
+            S = torch.as_tensor(scalars_to_limbs(gspec, part), device=dc.device)
+            if fixed_base:
+                res = dc.affine_encoding(_fixed_base_mul(dc, *table, S))
+            else:
+                res = dc.affine_encoding(dc.scalar_mul(base, S))
+            outs.append(tuple(a.cpu().numpy() for a in res))
+        return EncodedBases(
+            np.concatenate([o[0] for o in outs])[:n],
+            np.concatenate([o[1] for o in outs])[:n],
+            np.concatenate([o[2] for o in outs])[:n],
+        )
+
+    # ------------------------------------------------------------------ prove
+
+    def prove(self, pk: ProvingKey, cs, r_rand=None, s_rand=None) -> Proof:
+        """Prove a *solved* ConstraintSystem (witness inside)."""
+        r = self.r
+        rng = _random.Random()
+        rr = rng.randrange(r) if r_rand is None else r_rand
+        ss = rng.randrange(r) if s_rand is None else s_rand
+
+        z = cs.witness()
+        N = 1 << pk.domain_log
+        n_cons = len(cs.constraints)
+        df = self.ntt.df
+        W = -(-self.g1.r.bit_length() // WINDOW_BITS)
+
+        # --- witness reduction on the device --------------------------------
+        with log.info_time("groth16.witness_reduce_dev", n_constraints=n_cons):
+            dcsr = getattr(cs, "_torch_csr", None)
+            if dcsr is None or dcsr.device != self.device:
+                dcsr = DeviceCSR(cs._flat_matrices(), r, df.L, self.device)
+                cs._torch_csr = dcsr
+            # the witness goes up ONCE as packed 32-bit words; every MSM's
+            # scalar set is a device gather + a device unpack
+            Zp = torch.as_tensor(
+                pack_scalars(self.g1, z).view(np.int32), device=self.device
+            )
+            abc = matvec_device(df, dcsr, unpack_limbs(Zp, W), N)
+            if not bool(satisfied_device(df, *abc, n_cons)):
+                raise ValueError("witness does not satisfy constraints")
+
+        # --- quotient polynomial h ------------------------------------------
+        with log.info_time("groth16.quotient_ntt", domain=N):
+            g = self.fr.multiplicative_generator
+            # per-polynomial transforms: peak memory ~2 (N, L) tensors
+            cosets = [self.ntt.coset_ntt(self.ntt.intt(v)) for v in abc]
+            del abc
+            num = df.sub(df.mul(cosets[0], cosets[1]), cosets[2])
+            del cosets
+            zc_inv = pow((pow(g, N, r) - 1) % r, -1, r)
+            h_coeffs = self.ntt.coset_intt(df.mul(num, df.encode_scalar(zc_inv)))
+            del num
+            # raw base-2^12 limbs ARE the MSM scalar format
+            h_raw = df.from_mont(h_coeffs)
+            del h_coeffs
+            if bool((h_raw[N - 1] != 0).any()):
+                raise ValueError("quotient degree overflow")
+
+        # --- MSMs -----------------------------------------------------------
+        with log.info_time("groth16.msms", n_vars=len(z)):
+            npub = 1 + cs.num_public
+            h_lin = self._msm_enc(self.dc, self.g1, pk.z_g1, h_raw[: N - 1])
+            del h_raw
+            ai, bi, ki = self._pk_dev_indices(pk, npub, len(z))
+            a_S = unpack_limbs(Zp if ai is None else Zp[ai], W)
+            a_lin = self._msm_enc(self.dc, self.g1, pk.a_g1, a_S)
+            del a_S
+            k_lin = self._msm_enc(self.dc, self.g1, pk.k_g1,
+                                  unpack_limbs(Zp[ki], W))
+            b_S = unpack_limbs(Zp if bi is None else Zp[bi], W)
+            del Zp
+            b1_lin = self._msm_enc(self.dc, self.g1, pk.b_g1, b_S)
+            b2_lin = self._msm_enc(self.dc2, self.g2, pk.b_g2, b_S)
+            del b_S
+
+        # --- assembly (host, tiny) ------------------------------------------
+        A = pk.alpha_g1.add(a_lin).add(pk.delta_g1.mul(rr))
+        B1 = pk.beta_g1.add(b1_lin).add(pk.delta_g1.mul(ss))
+        B2 = pk.beta_g2.add(b2_lin).add(pk.delta_g2.mul(ss))
+        Cpt = (
+            k_lin.add(h_lin)
+            .add(A.mul(ss))
+            .add(B1.mul(rr))
+            .add(pk.delta_g1.mul((-rr * ss) % r))
+        )
+        return Proof(a=A, b=B2, c=Cpt)
+
+    def _pk_dev_indices(self, pk, npub: int, m: int):
+        """Device index tensors for the a/b/k witness gathers, cached on
+        the ProvingKey per device."""
+        cached = getattr(pk, "_torch_idx", None)
+        if cached is not None and cached[0] == self.device:
+            return cached[1]
+
+        def dev(ix):
+            if ix is None:
+                return None
+            return torch.as_tensor(np.asarray(ix, np.int64), device=self.device)
+
+        ki = (
+            dev(pk.k_priv_indices) if pk.k_priv_indices is not None
+            else torch.arange(npub, m, device=self.device)
+        )
+        idx = (dev(pk.a_indices), dev(pk.b_indices), ki)
+        pk._torch_idx = (self.device, idx)
+        return idx
+
+    # G2 sets above this run as segments whose partials fold on the device
+    MSM_SEGMENT = 1 << 18
+    MSM_SEGMENT_G2 = 1 << 16
+
+    def _msm_enc(self, dc, gspec, bases: EncodedBases, scalars):
+        """MSM over pre-encoded bases at the set's natural shape.
+
+        `scalars` is either a list of host ints or an (n, W) raw base-2^12
+        limb array (numpy or a tensor, e.g. the quotient straight off the
+        NTT)."""
+        n = len(bases)
+        if getattr(scalars, "ndim", None) == 2:
+            S_full = torch.as_tensor(scalars, device=dc.device)
+        else:
+            S_full = torch.as_tensor(scalars_to_limbs(gspec, scalars),
+                                     device=dc.device)
+        if n != S_full.shape[0]:
+            raise ValueError(f"{n} bases but {S_full.shape[0]} scalars")
+        if n == 0 or not bool(S_full.any()):
+            return gspec.infinity()
+        seg = self.MSM_SEGMENT_G2 if dc.ops.coord_ndim == 2 else self.MSM_SEGMENT
+        if n <= seg:
+            out = msm(dc, bases.device(dc.device), S_full)
+            return dc.decode_points(tuple(a[None] for a in out))[0]
+        return self._msm_enc_segmented(dc, gspec, bases, S_full, seg)
+
+    def _msm_enc_segmented(self, dc, gspec, bases, S_full, seg):
+        n = len(bases)
+        arrs = bases.device(dc.device)
+        total = None
+        for ofs in range(0, n, seg):
+            hi = min(ofs + seg, n)
+            S = S_full[ofs:hi]
+            if not bool(S.any()):
+                continue
+            out = msm(dc, tuple(a[ofs:hi] for a in arrs), S)
+            out = tuple(a[None] for a in out)
+            # fold segment partials on the device; decode once at the end
+            total = out if total is None else dc.add(total, out)
+        if total is None:
+            return gspec.infinity()
+        return dc.decode_points(total)[0]
+
+    # ----------------------------------------------------------------- verify
+
+    def verify(self, vk: VerifyingKey, proof: Proof, public_inputs: list) -> bool:
+        """public_inputs: the circuit's public values (without the ONE)."""
+        z_pub = [1] + [x % self.r for x in public_inputs]
+        if len(z_pub) != len(vk.k_pub_g1):
+            return False
+        pi = self.g1.infinity()
+        for pt, s in zip(vk.k_pub_g1, z_pub):
+            if s:
+                pi = pi.add(pt.mul(s))
+        return self.ctx.pairing_check(
+            [
+                (proof.a.neg(), proof.b),
+                (vk.alpha_g1, vk.beta_g2),
+                (pi, vk.gamma_g2),
+                (proof.c, vk.delta_g2),
+            ]
+        )

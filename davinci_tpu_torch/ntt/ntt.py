@@ -1,0 +1,149 @@
+"""Number-theoretic transform (radix-2) over SNARK scalar fields: the
+quotient-polynomial transforms inside Groth16 proving.  Counterpart of
+`davinci_tpu/ntt/ntt.py` (the single-device transforms).
+
+Constant-geometry Stockham DIF: every stage halves, butterflies,
+gathers twiddles and permutes with host-precomputed (logn, n) permutation
+and (logn, n/2) twiddle-exponent tables; natural order in and out.  Data
+is (..., n, L) int32 Montgomery limbs at the boundary and stays in wide
+limbs across the stages.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from davinci_tpu_torch.ff.mod import from_wide, get_device_field, to_wide
+
+
+@functools.lru_cache(maxsize=16)
+def _stage_tables_np(n: int):
+    """perm (logn, n): output position i of stage s reads butterfly output
+    [b*(n/2) + j*m + t] where i = j*2m + b*m + t, m = 2^s;
+    exps (logn, n/2): twiddle exponents (j*m for flat lane j*m+t)."""
+    logn = n.bit_length() - 1
+    perm = np.zeros((max(logn, 1), n), np.int64)
+    exps = np.zeros((max(logn, 1), max(n // 2, 1)), np.int64)
+    i = np.arange(n)
+    half = np.arange(n // 2)
+    for s in range(logn):
+        m = 1 << s
+        j, rem = i // (2 * m), i % (2 * m)
+        b, t = rem // m, rem % m
+        perm[s] = b * (n // 2) + j * m + t
+        exps[s] = (half // m) * m
+    return perm, exps
+
+
+class DeviceNTT:
+    def __init__(self, spec, device="cpu"):
+        self.spec = spec
+        self.device = torch.device(device)
+        self.df = get_device_field(spec, self.device)
+        self._tables = {}
+
+    def _roots(self, logn: int):
+        """(omega, omega_inv, n_inv) as host ints for a 2^logn domain."""
+        w = self.spec.root_of_unity(logn)
+        winv = pow(w, -1, self.spec.p)
+        ninv = pow(1 << logn, -1, self.spec.p)
+        return w, winv, ninv
+
+    def _stage_tables(self, n: int):
+        if n not in self._tables:
+            perm, exps = _stage_tables_np(n)
+            self._tables[n] = (torch.as_tensor(perm, device=self.device),
+                               torch.as_tensor(exps, device=self.device))
+        return self._tables[n]
+
+    def power_table(self, g: int, n: int) -> torch.Tensor:
+        """[1, g, g^2, ..., g^(n-1)] as (n, L) Montgomery limbs, built on
+        the device with log2(n) batched muls."""
+        df = self.df
+        p = torch.stack([df.one_mont, df.encode_scalar(g)])
+        cur = g * g % self.spec.p
+        while p.shape[0] < n:
+            p = torch.cat([p, df.mul(p, df.encode_scalar(cur)[None, :])])
+            cur = cur * cur % self.spec.p
+        return p[:n]
+
+    def _butterflies(self, x: torch.Tensor, wpow, n: int) -> torch.Tensor:
+        """Constant-geometry Stockham DIF stages: natural order in/out.
+        wpow: (n/2, L) powers of omega."""
+        df = self.df
+        perm, exps = self._stage_tables(n)
+        half = n // 2
+        w = to_wide(x)
+        wp = to_wide(wpow)
+        for s in range(n.bit_length() - 1):
+            u = w[..., :half, :]
+            v = w[..., half:, :]
+            z = torch.cat(
+                [df.add_w(u, v), df.mul_w(wp[exps[s]], df.sub_w(u, v))],
+                dim=-2,
+            )
+            w = z.index_select(-2, perm[s])
+        return from_wide(w)
+
+    def _wpow(self, w: int, n: int):
+        return self.power_table(w, n // 2) if n > 1 else self.df.one_mont[None]
+
+    def ntt(self, x: torch.Tensor) -> torch.Tensor:
+        """Forward NTT: coefficients -> evaluations on the 2^k domain.
+        x: (..., n, L) Montgomery limbs."""
+        n = x.shape[-2]
+        logn = n.bit_length() - 1
+        if 1 << logn != n:
+            raise ValueError(f"NTT size {n} is not a power of two")
+        w, _, _ = self._roots(logn)
+        return self._butterflies(x, self._wpow(w, n), n)
+
+    def intt(self, x: torch.Tensor) -> torch.Tensor:
+        """Inverse NTT: evaluations -> coefficients."""
+        n = x.shape[-2]
+        logn = n.bit_length() - 1
+        if 1 << logn != n:
+            raise ValueError(f"NTT size {n} is not a power of two")
+        _, winv, ninv = self._roots(logn)
+        x = self._butterflies(x, self._wpow(winv, n), n)
+        return self.df.mul(x, self.df.encode_scalar(ninv))
+
+    # -- explicit-root transforms -------------------------------------------
+
+    def ntt_with_root(self, x: torch.Tensor, w: int) -> torch.Tensor:
+        n = x.shape[-2]
+        if pow(w, n, self.spec.p) != 1:
+            raise ValueError("w is not an n-th root of unity")
+        return self._butterflies(x, self._wpow(w, n), n)
+
+    def intt_with_root(self, x: torch.Tensor, w: int) -> torch.Tensor:
+        n = x.shape[-2]
+        winv = pow(w, -1, self.spec.p)
+        ninv = pow(n, -1, self.spec.p)
+        x = self._butterflies(x, self._wpow(winv, n), n)
+        return self.df.mul(x, self.df.encode_scalar(ninv))
+
+    # -- coset helpers (quotient polynomial) --------------------------------
+
+    def coset_ntt(self, coeffs: torch.Tensor, g: int | None = None):
+        """Evaluate on the coset g*H: scale coeff_i by g^i then NTT."""
+        n = coeffs.shape[-2]
+        if g is None:
+            g = self.spec.multiplicative_generator
+        return self.ntt(self.df.mul(coeffs, self.power_table(g, n)))
+
+    def coset_intt(self, evals: torch.Tensor, g: int | None = None):
+        """Interpolate from coset evaluations: iNTT then scale by g^-i."""
+        n = evals.shape[-2]
+        if g is None:
+            g = self.spec.multiplicative_generator
+        ginv = pow(g, -1, self.spec.p)
+        return self.df.mul(self.intt(evals), self.power_table(ginv, n))
+
+
+@functools.cache
+def get_device_ntt(spec, device="cpu") -> DeviceNTT:
+    return DeviceNTT(spec, torch.device(device))

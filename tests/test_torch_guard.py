@@ -1,0 +1,68 @@
+"""Guards on davinci_tpu_torch's boundary with the JAX package.
+
+* The host modules it carries over are verbatim copies: each equals its
+  reference file once `davinci_tpu` is rewritten to `davinci_tpu_torch`.
+  `hash/poseidon.py` holds only the host half of its reference.
+* Importing the package pulls in neither `jax` nor `davinci_tpu`: the
+  machine with the GPU has no JAX.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+REF, PORT = REPO / "davinci_tpu", REPO / "davinci_tpu_torch"
+
+VERBATIM = [
+    "fields.py", "towers.py", "curves.py", "pairing.py", "log.py",
+    "spec.py", "ballotmode.py",
+    "elgamal/__init__.py", "elgamal/bjj.py", "elgamal/core.py",
+    "groth16/r1cs.py",
+    "circuits/__init__.py", "circuits/gadgets.py", "circuits/ballotproof.py",
+]
+
+
+def _rewritten(rel):
+    return (REF / rel).read_text().replace("davinci_tpu", "davinci_tpu_torch")
+
+
+@pytest.mark.parametrize("rel", VERBATIM)
+def test_host_module_is_a_verbatim_copy(rel):
+    assert (PORT / rel).read_text() == _rewritten(rel)
+
+
+def test_poseidon_is_the_host_half_of_its_reference():
+    """From the round constants to the iden3 vector checks, the copy is the
+    reference's text; the reference goes on with the device permutation."""
+    ref, port = _rewritten("hash/poseidon.py"), (PORT / "hash/poseidon.py").read_text()
+    start = "R_F = 8\n"
+    body = port[port.index(start):]
+    tail = ref[ref.index(start):]
+    assert tail.startswith(body)
+    assert "class DevicePoseidon" in tail[len(body):]
+    assert "import jax" not in port
+
+
+def test_package_imports_without_jax():
+    """A fresh interpreter imports every module of the package and is left
+    with no jax and no davinci_tpu module loaded."""
+    code = """
+import importlib, pkgutil, sys
+import davinci_tpu_torch
+for m in pkgutil.walk_packages(davinci_tpu_torch.__path__, "davinci_tpu_torch."):
+    importlib.import_module(m.name)
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "davinci_tpu"))
+print(len([n for n in sys.modules if n.startswith("davinci_tpu_torch.")]), bad)
+assert not bad, bad
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    n_mods = int(out.stdout.split()[0])
+    assert n_mods > 25
