@@ -1,0 +1,259 @@
+// The bucket-scan MSM path's kernels for BN254 G1 (L = 22, p < 2^254):
+//
+//   B2 davinci_bucket_scan_g1    replaces davinci_tpu/msm/bucket_kernel.py
+//                                ::_scan_kernel (sorted-stream bucket scan)
+//   B3 davinci_bucket_reduce_g1  ::_reduce_kernel (per-lane A = sum S_k,
+//                                B = sum k S_k of the bucket arrays)
+//   B4 davinci_suffix_reduce_g1  ::_suffix_reduce_kernel (the same sums
+//                                over the leading axis of (K, 3L, M))
+//   B5 davinci_horner_g1         ::_horner_kernel (sum_w 2^(wbits w) S_w)
+//
+// The TPU kernels carry an accumulator in VMEM across sequential grid
+// steps.  Here one thread owns one lane and walks the sequential axis in a
+// loop, its accumulators in registers.  Every group operation is
+// field.cuh's canonical rcb15 or rcb15_mixed (doublings are rcb15(t, t),
+// as in the reference), so the outputs equal the plain PyTorch versions of
+// msm/bucket_kernel.py limb for limb.  Limb-major arrays are read with
+// limb i of lane l at i * stride + l, so neighbouring threads touch
+// neighbouring words.
+//
+// What bounds them on the card:
+//   B2 moves the most bytes of the four (at n = 2^17 with 22 windows it
+//   reads 0.2 GB of planes and keys and writes a 0.76 GB stream) and does
+//   one mixed add (13 field muls) per point and window.  Its stream is
+//   written as one 264-byte row per thread and position, the reference's
+//   (rows, NL, 3L) layout that the tail gather reads as rows; those writes
+//   are not coalesced, which is left for a later change.
+//   B3 does 2 complete adds per bucket: multiply bound, with Wt * C lanes
+//   (5,632 at c1) in flight.
+//   B4 and B5 are chains of dependent adds on few lanes (B4: 2K - 1 adds on
+//   each of 2 Wt lanes; B5: (W - 1)(wbits + 1) adds on one lane): latency,
+//   not throughput, bounds them, far from any roofline.  Splitting those
+//   chains across threads is later work.
+
+#include <cstring>
+
+#include "field.cuh"
+
+namespace {
+
+constexpr int LP = (12 * L + 15) / 16;  // packed 16-bit planes per point
+static_assert(2 * N <= LP, "the value's 32-bit words come from the planes");
+constexpr int THREADS = 128;
+
+__device__ __forceinline__ void set_identity(Fp& X, Fp& Y, Fp& Z,
+                                             const Consts& c) {
+#pragma unroll
+  for (int k = 0; k < N; k++) {
+    X.w[k] = 0;
+    Z.w[k] = 0;
+  }
+  set_words(Y, c.one);
+}
+
+// B2.  planes: (rows, LP, nl) uint32 words, plane j = bits [16j, 16j+16)
+// of x in the low and of y in the high half (plane 16 is zero for values
+// below 2^256); keys: (rows, nl) sorted keys; out: (rows, nl, 3L).
+__global__ void __launch_bounds__(THREADS)
+    bucket_scan_kernel(const uint32_t* __restrict__ planes,
+                       const int32_t* __restrict__ keys,
+                       int32_t* __restrict__ out, const Consts c,
+                       long long rows, long long nl, int is_signed) {
+  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= nl) return;
+  Fp b3, one, zero;
+  set_b3(b3, c);
+  set_words(one, c.one);
+#pragma unroll
+  for (int k = 0; k < N; k++) zero.w[k] = 0;
+  Fp X, Y, Z;
+  int prev = 0;
+  for (long long r = 0; r < rows; r++) {
+    const int key = keys[r * nl + l];
+    const uint32_t* pl = planes + r * LP * nl + l;
+    Fp x, y;
+#pragma unroll
+    for (int k = 0; k < N; k++) {
+      const uint32_t lo = pl[(2 * k) * nl], hi = pl[(2 * k + 1) * nl];
+      x.w[k] = (lo & 0xFFFFu) | (hi << 16);
+      y.w[k] = (lo >> 16) | (hi & 0xFFFF0000u);
+    }
+    if (is_signed && (key & 1)) sub(y, zero, y, c);  // -P = (x, -y)
+    // same bucket: with signed keys (2 * bucket + sign) a run may cross
+    // the sign boundary; its points are already negated
+    const bool same =
+        r > 0 && (is_signed ? (key >> 1) == (prev >> 1) : key == prev);
+    if (same) {
+      rcb15_mixed(X, Y, Z, X, Y, Z, x, y, b3, c);
+    } else {
+      X = x;
+      Y = y;
+      Z = one;
+    }
+    int32_t* o = out + (r * nl + l) * (3 * L);
+    store(o, X);
+    store(o + L, Y);
+    store(o + 2 * L, Z);
+    prev = key;
+  }
+}
+
+// B3.  s*: (L, wt, nb) bucket arrays; one thread per (w, col), col < cw;
+// k = nb / cw rows walked from the top.  a*, b*: (L, wt, cw).
+__global__ void __launch_bounds__(THREADS)
+    bucket_reduce_kernel(const int32_t* __restrict__ sx,
+                         const int32_t* __restrict__ sy,
+                         const int32_t* __restrict__ sz,
+                         int32_t* __restrict__ ax, int32_t* __restrict__ ay,
+                         int32_t* __restrict__ az, int32_t* __restrict__ bx,
+                         int32_t* __restrict__ by, int32_t* __restrict__ bz,
+                         const Consts c, long long wt, long long nb,
+                         long long cw) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= wt * cw) return;
+  const long long w = t / cw, col = t % cw, K = nb / cw;
+  const long long s_in = wt * nb, s_out = wt * cw;
+  Fp b3, RX, RY, RZ, BX, BY, BZ;
+  set_b3(b3, c);
+  set_identity(RX, RY, RZ, c);
+  set_identity(BX, BY, BZ, c);
+  for (long long k = K - 1; k >= 0; k--) {
+    const long long o = w * nb + k * cw + col;
+    Fp SX, SY, SZ;
+    load(SX, sx + o, s_in);
+    load(SY, sy + o, s_in);
+    load(SZ, sz + o, s_in);
+    rcb15(RX, RY, RZ, RX, RY, RZ, SX, SY, SZ, b3, c);  // run += S_k
+    if (k) rcb15(BX, BY, BZ, BX, BY, BZ, RX, RY, RZ, b3, c);  // B += run
+  }
+  const long long o = w * cw + col;
+  store(ax + o, RX, s_out);
+  store(ay + o, RY, s_out);
+  store(az + o, RZ, s_out);
+  store(bx + o, BX, s_out);
+  store(by + o, BY, s_out);
+  store(bz + o, BZ, s_out);
+}
+
+// B4.  s: (K, 3L, M) point columns (X limbs, Y limbs, Z limbs); one thread
+// per lane m.  a, b: (3L, M).
+__global__ void __launch_bounds__(THREADS)
+    suffix_reduce_kernel(const int32_t* __restrict__ s,
+                         int32_t* __restrict__ a, int32_t* __restrict__ b,
+                         const Consts c, long long K, long long M) {
+  const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  const long long plane = (long long)L * M;
+  Fp b3, RX, RY, RZ, BX, BY, BZ;
+  set_b3(b3, c);
+  set_identity(RX, RY, RZ, c);
+  set_identity(BX, BY, BZ, c);
+  for (long long k = K - 1; k >= 0; k--) {
+    const int32_t* sk = s + k * 3 * plane + m;
+    Fp SX, SY, SZ;
+    load(SX, sk, M);
+    load(SY, sk + plane, M);
+    load(SZ, sk + 2 * plane, M);
+    rcb15(RX, RY, RZ, RX, RY, RZ, SX, SY, SZ, b3, c);
+    if (k) rcb15(BX, BY, BZ, BX, BY, BZ, RX, RY, RZ, b3, c);
+  }
+  store(a + m, RX, M);
+  store(a + plane + m, RY, M);
+  store(a + 2 * plane + m, RZ, M);
+  store(b + m, BX, M);
+  store(b + plane + m, BY, M);
+  store(b + 2 * plane + m, BZ, M);
+}
+
+// B5.  s*: (L, W * B) window-major sums (window w, batch b at column
+// w * B + b); one thread per batch column, walking the windows downward.
+// o*: (L, B).
+__global__ void __launch_bounds__(THREADS)
+    horner_kernel(const int32_t* __restrict__ sx,
+                  const int32_t* __restrict__ sy,
+                  const int32_t* __restrict__ sz, int32_t* __restrict__ ox,
+                  int32_t* __restrict__ oy, int32_t* __restrict__ oz,
+                  const Consts c, long long W, long long B, long long wbits) {
+  const long long bi = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (bi >= B) return;
+  const long long WB = W * B;
+  Fp b3, TX, TY, TZ;
+  set_b3(b3, c);
+  const long long top = (W - 1) * B + bi;
+  load(TX, sx + top, WB);
+  load(TY, sy + top, WB);
+  load(TZ, sz + top, WB);
+  for (long long w = W - 2; w >= 0; w--) {
+    for (long long i = 0; i < wbits; i++)
+      rcb15(TX, TY, TZ, TX, TY, TZ, TX, TY, TZ, b3, c);
+    Fp SX, SY, SZ;
+    const long long o = w * B + bi;
+    load(SX, sx + o, WB);
+    load(SY, sy + o, WB);
+    load(SZ, sz + o, WB);
+    rcb15(TX, TY, TZ, TX, TY, TZ, SX, SY, SZ, b3, c);
+  }
+  store(ox + bi, TX, B);
+  store(oy + bi, TY, B);
+  store(oz + bi, TZ, B);
+}
+
+Consts consts_of(const uint32_t* words) {
+  Consts c;
+  std::memcpy(&c, words, sizeof(Consts));
+  return c;
+}
+
+unsigned blocks_for(long long n) {
+  return (unsigned)((n + THREADS - 1) / THREADS);
+}
+
+}  // namespace
+
+// Each entry point launches on `stream` and returns cudaGetLastError()
+// (0 on success); consts: the uint32 words of struct Consts (field.cuh).
+
+extern "C" int davinci_bucket_scan_g1(const int32_t* planes,
+                                      const int32_t* keys, int32_t* out,
+                                      const uint32_t* consts, long long rows,
+                                      long long nl, long long is_signed,
+                                      void* stream) {
+  if (nl <= 0) return 0;
+  bucket_scan_kernel<<<blocks_for(nl), THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)planes, keys, out, consts_of(consts), rows, nl,
+      (int)is_signed);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int davinci_bucket_reduce_g1(
+    const int32_t* sx, const int32_t* sy, const int32_t* sz, int32_t* ax,
+    int32_t* ay, int32_t* az, int32_t* bx, int32_t* by, int32_t* bz,
+    const uint32_t* consts, long long wt, long long nb, long long cw,
+    void* stream) {
+  if (wt * cw <= 0) return 0;
+  bucket_reduce_kernel<<<blocks_for(wt * cw), THREADS, 0,
+                         (cudaStream_t)stream>>>(
+      sx, sy, sz, ax, ay, az, bx, by, bz, consts_of(consts), wt, nb, cw);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int davinci_suffix_reduce_g1(const int32_t* s, int32_t* a,
+                                        int32_t* b, const uint32_t* consts,
+                                        long long K, long long M,
+                                        void* stream) {
+  if (M <= 0) return 0;
+  suffix_reduce_kernel<<<blocks_for(M), THREADS, 0, (cudaStream_t)stream>>>(
+      s, a, b, consts_of(consts), K, M);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int davinci_horner_g1(const int32_t* sx, const int32_t* sy,
+                                 const int32_t* sz, int32_t* ox, int32_t* oy,
+                                 int32_t* oz, const uint32_t* consts,
+                                 long long W, long long B, long long wbits,
+                                 void* stream) {
+  if (B <= 0) return 0;
+  horner_kernel<<<blocks_for(B), THREADS, 0, (cudaStream_t)stream>>>(
+      sx, sy, sz, ox, oy, oz, consts_of(consts), W, B, wbits);
+  return (int)cudaGetLastError();
+}

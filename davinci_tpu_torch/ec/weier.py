@@ -29,7 +29,7 @@ class DeviceCurve:
     (..., L) for prime fields or (..., 2, L) for Fp2.
     """
 
-    def __init__(self, spec, device="cpu"):
+    def __init__(self, spec, device="cuda"):
         self.spec = spec
         self.device = torch.device(device)
         fld = spec.fld
@@ -175,5 +175,5 @@ class DeviceCurve:
 
 
 @functools.cache
-def get_device_curve(spec, device="cpu") -> DeviceCurve:
+def get_device_curve(spec, device="cuda") -> DeviceCurve:
     return DeviceCurve(spec, torch.device(device))

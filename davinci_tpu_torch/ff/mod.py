@@ -175,7 +175,7 @@ class DeviceField:
     # (L/2)^2 * 8 bytes per element (~1 KB at L=22)
     _MUL_CHUNK = 1 << 19
 
-    def __init__(self, spec: FieldSpec, device="cpu"):
+    def __init__(self, spec: FieldSpec, device="cuda"):
         if spec.num_limbs % 2 or spec.num_limbs > 32:
             # float64 limb products are exact up to 16 wide limbs
             raise ValueError(
@@ -347,5 +347,5 @@ class DeviceField:
 
 
 @functools.cache
-def get_device_field(spec: FieldSpec, device="cpu") -> DeviceField:
+def get_device_field(spec: FieldSpec, device="cuda") -> DeviceField:
     return DeviceField(spec, torch.device(device))

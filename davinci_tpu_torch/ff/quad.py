@@ -121,5 +121,5 @@ class DeviceQuadExt:
 
 
 @functools.cache
-def get_device_quad(spec, nr: int, device="cpu") -> DeviceQuadExt:
+def get_device_quad(spec, nr: int, device="cuda") -> DeviceQuadExt:
     return DeviceQuadExt(get_device_field(spec, device), nr)

@@ -3,7 +3,8 @@
 
 EncodedBases stores the device encoding itself -- (X, Y, Z) int32
 Montgomery limb arrays in the MSM affine-input contract (z in {0, one}) --
-as numpy on the host, uploaded to a device once and cached there.
+as numpy on the host, uploaded to a device once and cached there, with
+the scan-path MSM's plane pack of the G1 bases beside it.
 """
 
 from __future__ import annotations
@@ -11,12 +12,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from davinci_tpu_torch.msm.bucket_kernel import pack_points
+
 
 class EncodedBases:
     """(X, Y, Z) numpy int32 arrays shaped (n, L) (G1) or (n, 2, L) (G2),
     Montgomery limbs, z in {0, one_mont} per the MSM affine contract."""
 
-    __slots__ = ("x", "y", "z", "_dev")
+    __slots__ = ("x", "y", "z", "_dev", "_packed")
 
     def __init__(self, x, y, z):
         self.x = np.asarray(x, np.int32)
@@ -25,6 +28,7 @@ class EncodedBases:
         if not self.x.shape == self.y.shape == self.z.shape:
             raise ValueError("coordinate arrays differ in shape")
         self._dev = {}
+        self._packed = {}
 
     def __len__(self) -> int:
         return self.x.shape[0]
@@ -37,6 +41,15 @@ class EncodedBases:
                 torch.as_tensor(a, device=device) for a in (self.x, self.y, self.z)
             )
         return self._dev[device]
+
+    def device_packed(self, device, curve) -> tuple:
+        """(packed planes, is_inf) of the bases on `device` for the scan
+        path's fixed-base MSM (`bucket_kernel.pack_points`), computed once
+        per key and device at the set's natural length (G1 only)."""
+        device = torch.device(device)
+        if device not in self._packed:
+            self._packed[device] = pack_points(curve, *self.device(device))
+        return self._packed[device]
 
     def __eq__(self, other):
         if not isinstance(other, EncodedBases):

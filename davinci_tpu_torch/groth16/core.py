@@ -30,7 +30,7 @@ from davinci_tpu_torch.groth16.witness_dev import (
     matvec_device,
     satisfied_device,
 )
-from davinci_tpu_torch.msm import msm
+from davinci_tpu_torch.msm import msm, pippenger
 from davinci_tpu_torch.msm.pippenger import (
     NBUCKETS,
     WINDOW_BITS,
@@ -146,7 +146,7 @@ def _fixed_base_mul(dc, tx, ty, tz, S):
 class Groth16:
     """Groth16 over one pairing curve on one device."""
 
-    def __init__(self, curve_name: str, device="cpu"):
+    def __init__(self, curve_name: str, device="cuda"):
         self.curve_name = curve_name
         self.device = torch.device(device)
         self.ctx = PAIRINGS[curve_name]
@@ -446,7 +446,14 @@ class Groth16:
             return gspec.infinity()
         seg = self.MSM_SEGMENT_G2 if dc.ops.coord_ndim == 2 else self.MSM_SEGMENT
         if n <= seg:
-            out = msm(dc, bases.device(dc.device), S_full)
+            # fixed bases: the scan path's plane pack is made once per key
+            precomp = (
+                bases.device_packed(dc.device, dc)
+                if pippenger._use_pipeline(dc.device)
+                and pippenger._use_scan_path(dc)
+                else None
+            )
+            out = msm(dc, bases.device(dc.device), S_full, precomp=precomp)
             return dc.decode_points(tuple(a[None] for a in out))[0]
         return self._msm_enc_segmented(dc, gspec, bases, S_full, seg)
 

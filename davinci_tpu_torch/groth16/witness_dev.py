@@ -33,7 +33,7 @@ class DeviceCSR:
     Built once per circuit structure and reusable across proves: the
     structure is witness-independent."""
 
-    def __init__(self, mats, r: int, L: int, device="cpu"):
+    def __init__(self, mats, r: int, L: int, device="cuda"):
         self.r = r
         self.L = L
         self.device = torch.device(device)

@@ -1,24 +1,27 @@
 """Multi-scalar multiplication (Pippenger) as a batched bucket pipeline.
-Counterpart of `davinci_tpu/msm/pippenger.py`, for the path this package
-runs: the scan composition the reference takes with the bucket-scan
-kernels switched off (`pippenger.py:742-751`), which is also its G2 path.
+Counterpart of `davinci_tpu/msm/pippenger.py`.  `msm` picks its route as
+the reference does:
 
-  * Window size == LIMB_BITS (12): the j-th raw scalar limb is the bucket
-    index for window j.
-  * All windows at once: point adds carry a leading (W, ...) axis.
-  * Bucket accumulation: points sorted by bucket (stable sort, so the
-    streams match the reference's), laid out column-major (rows, COLS);
-    a Python loop walks the rows, each column keeps a running segment
-    accumulator and writes finished segments into the bucket array.
-    Runs that cross columns are merged by a log-depth segmented
-    suffix sum.
-  * Bucket reduction sum_b b*S_b by a Hillis-Steele suffix scan plus a
-    tree sum; windows combined by Horner (12 doublings per window).
+  * CPU tensors: the plain double-and-add `_msm_reference`, as the
+    reference does on its CPU backend.
+  * G1 on CUDA, `_msm_scan`: the reference's default (TPU) path.  Scalars
+    are recoded to signed digits in [-2048, 2048] (half the buckets), the
+    points packed into 16-bit planes, and kernels B2-B5 of
+    `bucket_kernel` do the bucket scan, the bucket reduce, the cross-lane
+    suffix reduce and Horner; the leftover merge and the combine's
+    doublings are point adds (B1) on the transposed (L, ...) layout.
+  * G2 on CUDA, `_msm_fused`: the scan composition the reference takes
+    with its kernels off (`pippenger.py:742-751`), on `DeviceCurve.add`
+    (B7).  Window size == LIMB_BITS (12): the j-th raw scalar limb is
+    the bucket of window j; all windows at once; points sorted by bucket
+    (stable sort, so the streams match the reference's), laid out
+    column-major (rows, COLS); a Python loop walks the rows and writes
+    finished segments into the bucket array; runs that cross columns
+    merge by a log-depth segmented suffix sum; sum_b b*S_b by a
+    Hillis-Steele suffix scan plus a tree sum; Horner last.
 
-Every group operation is `DeviceCurve.add`: on CUDA the hand-written
-point-add kernels.  On a CPU tensor `msm` takes the plain double-and-add
-`_msm_reference`, as the reference does on its CPU backend; `_msm_fused`
-is the pipeline itself and the tests drive it directly.
+The tests drive `_msm_fused` and `_msm_scan` directly on the CPU, where
+every kernel wrapper runs its plain version.
 """
 
 from __future__ import annotations
@@ -27,12 +30,46 @@ import numpy as np
 import torch
 
 from davinci_tpu_torch.fields import LIMB_BITS
+from davinci_tpu_torch.msm import bucket_kernel
 
 WINDOW_BITS = LIMB_BITS
 NBUCKETS = 1 << WINDOW_BITS  # bucket 0 contributes nothing (b * S_0, b=0)
+# signed digits in [-2048, 2048] halve the bucket count; the sign rides
+# bit 0 of the sort key and the scan kernel negates y on the fly
+SIGNED_NBUCKETS = NBUCKETS // 2
 COLS = 2048  # scan width per window: batched point adds per row
 # cap on the sorted-point working set (elements of W_tile * n)
 MAX_TILE_ELEMS = 1 << 23
+
+
+def _signed_sort_keys(limbs):
+    """(n, W) raw base-2^12 digits -> (n, W) int32 signed-scheme sort keys.
+
+    Recode d_j to [-2048, 2047] (the top window unsigned), then key =
+    (|d| - 1) * 2 + sign for d != 0; zero digits go to the sink key
+    2 * SIGNED_NBUCKETS (== NBUCKETS, the padding key).  Bucket slot i
+    holds the sum of (sign-applied) points with |digit| == i + 1, so the
+    reduce weighs slot i by i + 1 (`shifted`).
+
+    Contract: every scalar is below 2^(12W - 1), so the top raw digit is
+    at most 2047 and the top window absorbs the last carry (checked in
+    scalars_to_limbs)."""
+    n, W = limbs.shape
+    snb = SIGNED_NBUCKETS
+    carry = torch.zeros((n,), dtype=torch.int32, device=limbs.device)
+    ds = []
+    for j in range(W):
+        v = limbs[:, j] + carry
+        if j == W - 1:
+            ds.append(v)
+            break
+        neg = (v >= snb).to(torch.int32)
+        ds.append(v - neg * NBUCKETS)
+        carry = neg
+    D = torch.stack(ds, dim=1)  # signed digits, |D| <= 2048
+    mag = D.abs()
+    keys = (mag - 1) * 2 + (D < 0).to(torch.int32)
+    return torch.where(mag == 0, 2 * snb, keys).to(torch.int32)
 
 
 def _flat_scatter_set(buckets, w_idx, b_idx, vals, nb):
@@ -195,6 +232,155 @@ def _horner(curve, sums, W):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Transposed (L, ...) layout: the scan path.  Limbs lead, the batch
+# (windows x buckets or columns) follows, as in the bucket-scan kernel's
+# output; the point adds move the limb axis last for B1 and back.
+# ---------------------------------------------------------------------------
+
+
+def _t_add(curve, p, q):
+    """Complete addition on transposed (L, ...) coordinates: the limb axis
+    goes last (contiguous rows for B1 on CUDA, the plain add on CPU) and
+    comes back."""
+    shape = p[0].shape
+    L = shape[0]
+    rows = lambda t: tuple(a.reshape(L, -1).T.contiguous() for a in t)
+    out = curve.add(rows(p), rows(q))
+    return tuple(a.T.reshape(shape) for a in out)
+
+
+def _t_double(curve, p):
+    return _t_add(curve, p, p)
+
+
+def _t_select(cond, p, q):
+    """cond: batch-shaped (no limb axis), right-aligned broadcast against
+    the (L, ...batch) coordinates."""
+    return tuple(torch.where(cond, a, b) for a, b in zip(p, q))
+
+
+def _t_identity(curve, shape):
+    L = curve.df.L
+    one = curve.ops.one_mont.reshape((L,) + (1,) * len(shape))
+    x = torch.zeros((L,) + shape, dtype=torch.int32, device=one.device)
+    return (x, one.expand((L,) + shape), x)
+
+
+def _merge_leftovers_t(curve, buckets, acc, acc_key):
+    """Fold the lane-final segments into the buckets, transposed: a
+    log-depth segmented suffix sum along the lane axis groups same-key
+    lane tails, then one gather + add + scatter merges each group's total
+    into its bucket.
+
+    buckets: (L, Wt, NB + 2) x3 (the last slot is scratch); acc: (L, Wt,
+    cols) x3 lane-final accumulators; acc_key: (Wt, cols) lane-final
+    bucket slots (non-decreasing).  Returns new bucket arrays."""
+    L, Wt, cols = acc[0].shape
+    dev = acc_key.device
+    keys_l = acc_key
+    col_iota = torch.arange(cols, device=dev)
+    ident_cols = _t_identity(curve, (Wt, cols))
+
+    s = acc
+    for i in range(max(cols.bit_length() - 1, 0)):
+        stride = 1 << i
+        valid = col_iota < (cols - stride)
+        pk = torch.where(valid, torch.roll(keys_l, -stride, dims=1), -1)
+        ps = _t_select(valid, tuple(torch.roll(a, -stride, dims=2) for a in s),
+                       ident_cols)
+        s = _t_select(keys_l == pk, _t_add(curve, s, ps), s)
+
+    start = torch.cat([torch.ones((Wt, 1), dtype=torch.bool, device=dev),
+                       keys_l[:, 1:] != keys_l[:, :-1]], dim=1)
+    nbp = buckets[0].shape[2]
+    w_iota = torch.arange(Wt, device=dev)[:, None]
+    flat_get = (w_iota * nbp + keys_l).reshape(-1)
+    cur = tuple(b.reshape(L, Wt * nbp)[:, flat_get].reshape(L, Wt, cols)
+                for b in buckets)
+    merged = _t_add(curve, cur, s)
+    # non-starts, and any slot out of range (the reference's mode="drop"),
+    # write the scratch slot, which is never read
+    keep = start & (keys_l >= 0) & (keys_l < nbp)
+    flat_set = (w_iota * nbp + torch.where(keep, keys_l, nbp - 1)).reshape(-1)
+    out = []
+    for b, v in zip(buckets, merged):
+        flat = b.reshape(L, Wt * nbp).clone()
+        flat[:, flat_set] = v.reshape(L, Wt * cols)
+        out.append(flat.reshape(L, Wt, nbp))
+    return tuple(out)
+
+
+def _bucket_reduce_t(curve, buckets, shifted: bool = False):
+    """Per-window bucket-weighted sum of (L, Wt, NB + 2) buckets ->
+    (L, Wt): sum_b b*S_b, or sum_b (b+1)*S_b when shifted (the signed
+    scheme keeps |digit| v in slot v - 1).  Per-lane partials by the
+    bucket-reduce kernel (B3), then the cross-lane combine."""
+    nb = buckets[0].shape[2] - 2
+    if nb & (nb - 1):
+        # the reference's suffix-scan branch for other widths is not
+        # ported: the signed scheme's NB is a power of two
+        raise ValueError(f"{nb} buckets: the reduce takes a power of two")
+    A, B = bucket_kernel.bucket_reduce_kernel(
+        curve, tuple(b[:, :, :nb].contiguous() for b in buckets))
+    return _reduce_combine_t(curve, A, B, shifted)
+
+
+def _reduce_combine_t(curve, A, B, shifted: bool = False):
+    """Cross-lane combine of the reduce partials: T_w = C sum_c B_c +
+    sum_c c A_c (+ sum_c A_c when shifted) on (L, Wt, C) x3 -> (L, Wt).
+
+    One suffix-reduce launch (B4) over the lanes [A | B] gives sum_c c A_c
+    (the weighted sum of the A half) and sum_c B_c (the plain sum of the B
+    half); the log2(C) doublings and the final adds are point adds."""
+    L, Wt, Cw = A[0].shape
+    nbits = Cw.bit_length() - 1  # Cw is a power of two
+
+    def prep(t):  # (L, Wt, Cw) x3 -> (Cw, 3L, Wt)
+        return torch.cat(t, dim=0).permute(2, 0, 1)
+
+    s = torch.cat([prep(A), prep(B)], dim=2).contiguous()  # (Cw, 3L, 2Wt)
+    A2, B2 = bucket_kernel.suffix_reduce_kernel(curve, s)  # (3L, 2Wt) each
+    wA = tuple(B2[c * L:(c + 1) * L, :Wt] for c in range(3))
+    CB = tuple(A2[c * L:(c + 1) * L, Wt:] for c in range(3))
+    for _ in range(nbits):
+        CB = _t_double(curve, CB)
+    out = _t_add(curve, CB, wA)
+    if shifted:  # + sum_c A_c: slot i weighs i + 1 = (k C + c) + 1
+        out = _t_add(curve, out, tuple(A2[c * L:(c + 1) * L, :Wt]
+                                       for c in range(3)))
+    return out
+
+
+def _horner_t(curve, sums, W: int):
+    """Window combine on the transposed layout by point adds: sums
+    (L, W*B) window-major -> (L, B) x3.  The plain reference for B5."""
+    L, WB = sums[0].shape
+    B = WB // W
+    total = tuple(s[:, (W - 1) * B:W * B] for s in sums)
+    for j in range(1, W):
+        for _ in range(WINDOW_BITS):
+            total = _t_double(curve, total)
+        start = (W - 1 - j) * B
+        total = _t_add(curve, total, tuple(s[:, start:start + B] for s in sums))
+    return total
+
+
+def _horner_dispatch(curve, sums, W: int):
+    """The scan path's Horner: one launch of B5."""
+    return bucket_kernel.horner_kernel(
+        curve, tuple(s.contiguous() for s in sums), W, WINDOW_BITS)
+
+
+def _window_sums_packed(curve, packed, is_inf, keys_all):
+    """Scan-path window sums of a window tile, (L, Wt) x3: the bucket scan
+    over pre-packed planes, the leftover merge and the reduce."""
+    buckets, acc, acc_key = bucket_kernel.bucket_accumulate_packed(
+        curve, packed, is_inf, keys_all, COLS, SIGNED_NBUCKETS, signed=True)
+    buckets = _merge_leftovers_t(curve, buckets, acc, acc_key)
+    return _bucket_reduce_t(curve, buckets, shifted=True)
+
+
 def _pad_inputs(curve, xs, ys, zs, scalar_limbs, multiple: int | None = None):
     if multiple is None:
         multiple = COLS  # module attribute: tests may shrink it
@@ -242,17 +428,66 @@ def _msm_fused(curve, points, scalar_limbs):
     return _horner(curve, sums, W)
 
 
-def msm(curve, points, scalar_limbs):
+def _msm_scan(curve, points, scalar_limbs, precomp=None):
+    """The scan path (reference `pippenger.py:692-741`): signed sort keys
+    (recoded before padding), packed planes (`precomp`, or packed here),
+    padding to a power of two and to COLS at the sink key, window sums per
+    tile, Horner.  G1 only; the affine input contract (z in {0, one})."""
+    keys = _signed_sort_keys(scalar_limbs)
+    if precomp is None:
+        precomp = bucket_kernel.pack_points(curve, *points)
+    packed, is_inf = precomp
+    n = packed.shape[0]
+    n_pad = max(COLS, 1 << (n - 1).bit_length() if n > 1 else COLS)
+    n_pad = -(-n_pad // COLS) * COLS
+    if n_pad != n:
+        extra = n_pad - n
+        packed = torch.cat([packed, packed.new_zeros((extra, packed.shape[1]))])
+        is_inf = torch.cat([is_inf, is_inf.new_ones((extra,))])
+        keys = torch.cat([keys, keys.new_full((extra, keys.shape[1]),
+                                              2 * SIGNED_NBUCKETS)])
+    n, W = keys.shape
+    wt = _window_tile(n, W)
+    keys_all = keys.T  # (W, n)
+    sums = [_window_sums_packed(curve, packed, is_inf, keys_all[w0:w0 + wt])
+            for w0 in range(0, W, wt)]
+    sums = tuple(torch.cat(parts, dim=1) for parts in zip(*sums))
+    out = _horner_dispatch(curve, sums, W)  # (L, 1) x3
+    return tuple(a[:, 0] for a in out)
+
+
+def _use_pipeline(device) -> bool:
+    """The bucket pipelines run on the card; CPU tensors take the plain
+    `_msm_reference` (tests patch this to drive the pipelines)."""
+    return device.type != "cpu"
+
+
+def _use_scan_path(curve) -> bool:
+    """The scan path serves prime-field (G1) curves; Fp2 (G2) curves take
+    the fused pipeline."""
+    return curve.ops.coord_ndim == 1
+
+
+def msm(curve, points, scalar_limbs, precomp=None):
     """MSM on the curve's device.
 
     curve: DeviceCurve; points: (X, Y, Z) Montgomery limb batch (n, ...)
-    each; scalar_limbs: (n, W) raw base-2^12 limbs of the scalars.
-    Returns a single projective point.  CUDA tensors run the bucket
-    pipeline; CPU tensors run the plain `_msm_reference`.
+    each, affine (z in {0, one}) for the scan path; scalar_limbs: (n, W)
+    raw base-2^12 limbs of the scalars.  precomp: optional (packed,
+    is_inf) from `bucket_kernel.pack_points` of the same points (fixed
+    bases pack once).  Returns a single projective point.
     """
-    xs, ys, zs = points
-    if xs.device.type != "cpu":
+    if _use_pipeline(points[0].device):
+        if _use_scan_path(curve):
+            return _msm_scan(curve, points, scalar_limbs, precomp=precomp)
         return _msm_fused(curve, points, scalar_limbs)
+    return _msm_plain(curve, points, scalar_limbs)
+
+
+def _msm_plain(curve, points, scalar_limbs):
+    """`_msm_reference` after padding to a power of two with identities
+    and zero scalars."""
+    xs, ys, zs = points
     n = xs.shape[0]
     n_pad = 1 << (n - 1).bit_length() if n > 1 else 1
     if n_pad != n:
@@ -272,6 +507,10 @@ def scalars_to_limbs(spec, scalars) -> np.ndarray:
     """Host ints -> (n, W) int32 window/limb decomposition (raw, base 2^12),
     vectorized through a bytes round trip."""
     W = -(-spec.r.bit_length() // WINDOW_BITS)
+    # the signed-digit contract of _signed_sort_keys: top digit <= 2047
+    if spec.r.bit_length() > WINDOW_BITS * W - 1:
+        raise ValueError(
+            f"{spec.r.bit_length()}-bit scalars fill all {W} windows")
     n = len(scalars)
     if n == 0:
         return np.zeros((0, W), np.int32)

@@ -39,7 +39,7 @@ def _stage_tables_np(n: int):
 
 
 class DeviceNTT:
-    def __init__(self, spec, device="cpu"):
+    def __init__(self, spec, device="cuda"):
         self.spec = spec
         self.device = torch.device(device)
         self.df = get_device_field(spec, self.device)
@@ -145,5 +145,5 @@ class DeviceNTT:
 
 
 @functools.cache
-def get_device_ntt(spec, device="cpu") -> DeviceNTT:
+def get_device_ntt(spec, device="cuda") -> DeviceNTT:
     return DeviceNTT(spec, torch.device(device))

@@ -1,8 +1,10 @@
 """davinci_tpu_torch's CUDA kernels on the card (skipped without one).
 
-The hand-written kernels B1 (G1 point add) and B7 (G2 point add) are held
-limb for limb against their plain PyTorch version on the same CUDA
-tensors, and the bucket-pipeline MSM that runs on them against a host sum.
+The hand-written kernels B1 (G1 point add), B7 (G2 point add) and the
+scan path's B2-B5 (bucket scan, bucket reduce, suffix reduce, Horner) are
+held limb for limb against their plain PyTorch versions on the same CUDA
+tensors, each launch counted once, and the MSMs that run on them (the
+scan path for G1, the fused pipeline for G2) against a host sum.
 This file imports nothing of the JAX package; on a machine without JAX
 run it without the suite's conftest:
 
@@ -15,8 +17,11 @@ import pytest
 import torch
 
 from davinci_tpu_torch import curves as C
+from davinci_tpu_torch import kernels as K
 from davinci_tpu_torch.ec import cuda_add, get_device_curve
+from davinci_tpu_torch.msm import bucket_kernel as bk
 from davinci_tpu_torch.msm import msm
+from davinci_tpu_torch.msm import pippenger as pp
 from davinci_tpu_torch.msm.pippenger import scalars_to_limbs
 
 pytestmark = pytest.mark.cuda
@@ -80,6 +85,101 @@ def test_msm_on_the_card_matches_host(dev, name):
     out = msm(dc, dc.encode_points(pts),
               torch.as_tensor(scalars_to_limbs(spec, scalars), device=dev))
     got = dc.decode_points(tuple(a[None] for a in out))[0]
+    want = spec.infinity()
+    for i, b in enumerate(base):
+        want = want.add(b.mul(sum(scalars[i::8]) % spec.r))
+    assert got == want
+
+
+def _equal_once(kernel, run, plain):
+    before = kernel.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain()
+    for g, w in zip(_flat(got), _flat(want)):
+        assert torch.equal(g, w)
+
+
+def _flat(t):
+    if isinstance(t, (tuple, list)):
+        return [x for part in t for x in _flat(part)]
+    return [t]
+
+
+def _gen(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+def _projective(dc, n, seed):
+    r = random.Random(seed)
+    P = dc.encode_points([C.bn254_g1.gen.mul(r.randrange(1, C.bn254_g1.r))
+                          for _ in range(2 * n)])
+    return cuda_add.rcb15_plain(dc, tuple(a[:n] for a in P),
+                                tuple(a[n:] for a in P))
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_bucket_scan_matches_plain(dev, signed):
+    dc = get_device_curve(C.bn254_g1, dev)
+    r = random.Random(3)
+    rows, nl = 5, 300
+    pts = [C.bn254_g1.gen.mul(r.randrange(1, C.bn254_g1.r))
+           for _ in range(rows * nl)]
+    packed, _ = bk.pack_points(dc, *dc.encode_points(pts))
+    pts_arr = packed.reshape(rows, nl, -1).transpose(1, 2).contiguous()
+    keys = torch.randint(0, 9, (rows, nl), generator=_gen(4))
+    keys = torch.sort(keys, dim=0).values.to(torch.int32).to(dev)
+    _equal_once(K.B2, lambda: bk._bucket_scan(dc, pts_arr, keys, signed),
+                lambda: bk._bucket_scan_plain(dc, pts_arr, keys, signed))
+
+
+def test_bucket_reduce_matches_plain(dev):
+    dc = get_device_curve(C.bn254_g1, dev)
+    Wt, NB = 3, 512  # C = 256, K = 2
+    P = _projective(dc, 64, 5)
+    idx = torch.randint(0, 64, (Wt * NB,), generator=_gen(6)).to(dev)
+    buckets = tuple(a[idx].T.reshape(22, Wt, NB).contiguous() for a in P)
+    _equal_once(K.B3, lambda: bk.bucket_reduce_kernel(dc, buckets),
+                lambda: bk._bucket_reduce_plain(dc, buckets, bk.REDUCE_C))
+
+
+def test_suffix_reduce_matches_plain(dev):
+    dc = get_device_curve(C.bn254_g1, dev)
+    Kr, M = 7, 200
+    P = _projective(dc, 64, 7)
+    idx = torch.randint(0, 64, (Kr * M,), generator=_gen(8)).to(dev)
+    s = torch.cat([a[idx].reshape(Kr, M, 22).transpose(1, 2) for a in P],
+                  dim=1).contiguous()
+    _equal_once(K.B4, lambda: bk.suffix_reduce_kernel(dc, s),
+                lambda: bk._suffix_reduce_plain(dc, s))
+
+
+def test_horner_matches_plain(dev):
+    dc = get_device_curve(C.bn254_g1, dev)
+    W, B = 4, 130
+    P = _projective(dc, W * B, 9)
+    sums = tuple(a.T.contiguous() for a in P)
+    _equal_once(K.B5, lambda: bk.horner_kernel(dc, sums, W, pp.WINDOW_BITS),
+                lambda: bk._horner_plain(dc, sums, W, pp.WINDOW_BITS))
+
+
+def test_scan_msm_launches_every_kernel(dev):
+    """`msm` of a G1 set on the card takes the scan path: one launch each
+    of B2-B5 and the result equals the host sum."""
+    spec = C.bn254_g1
+    dc = get_device_curve(spec, dev)
+    r = random.Random(10)
+    n = 5000
+    base = [spec.gen.mul(r.randrange(1, spec.r)) for _ in range(7)]
+    base.append(spec.infinity())
+    scalars = [r.randrange(spec.r) for _ in range(n)]
+    scalars[:3] = [0, 1, spec.r - 1]
+    before = [k.launches for k in (K.B2, K.B3, K.B4, K.B5)]
+    out = msm(dc, dc.encode_points([base[i % 8] for i in range(n)]),
+              torch.as_tensor(scalars_to_limbs(spec, scalars), device=dev))
+    got = dc.decode_points(tuple(a[None] for a in out))[0]
+    assert [k.launches for k in (K.B2, K.B3, K.B4, K.B5)] == [b + 1 for b in before]
     want = spec.infinity()
     for i, b in enumerate(base):
         want = want.add(b.mul(sum(scalars[i::8]) % spec.r))

@@ -45,7 +45,7 @@ def _same(ref_arr, t):
 @pytest.mark.parametrize("name", BN254)
 def test_field_ops_match_reference(name):
     rspec, tspec = _pair(name)
-    R, T = ref_field(rspec), get_device_field(tspec)
+    R, T = ref_field(rspec), get_device_field(tspec, "cpu")
     xs = _elems(rspec.p, 24, 1)
     ys = _elems(rspec.p, 24, 2)
     a_r, b_r = R.encode(xs), R.encode(ys)
@@ -70,7 +70,7 @@ def test_field_ops_match_reference(name):
 @pytest.mark.parametrize("name", BN254)
 def test_broadcast_and_batch_dims(name):
     rspec, tspec = _pair(name)
-    R, T = ref_field(rspec), get_device_field(tspec)
+    R, T = ref_field(rspec), get_device_field(tspec, "cpu")
     xs = _elems(rspec.p, 12, 3)
     a_r = R.encode(xs).reshape(3, 4, -1)
     a_t = T.encode(xs).reshape(3, 4, -1)
@@ -81,7 +81,7 @@ def test_broadcast_and_batch_dims(name):
 @pytest.mark.parametrize("name", EVEN)
 def test_field_ops_match_python_ints(name):
     spec = getattr(TF, name)
-    T = get_device_field(spec)
+    T = get_device_field(spec, "cpu")
     p = spec.p
     xs, ys = _elems(p, 16, 4), _elems(p, 16, 5)
     a, b = T.encode(xs), T.encode(ys)
@@ -106,12 +106,12 @@ def test_carry_fix_matches_reference():
 
 def test_wide_limb_field_rejects_more_than_32_limbs():
     with pytest.raises(ValueError):
-        get_device_field(TF.bw6_761_fp)
+        get_device_field(TF.bw6_761_fp, "cpu")
 
 
 def test_quad_ext_matches_reference():
     rspec, tspec = _pair("bn254_fp")
-    R, T = ref_quad(rspec, -1), get_device_quad(tspec, -1)
+    R, T = ref_quad(rspec, -1), get_device_quad(tspec, -1, "cpu")
     p = rspec.p
     xs = list(zip(_elems(p, 12, 6), _elems(p, 12, 7)))
     ys = list(zip(_elems(p, 12, 8), _elems(p, 12, 9)))

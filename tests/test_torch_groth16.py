@@ -51,7 +51,7 @@ def _coords(pt):
 def keys():
     x = 3
     y = x**3 + x + 5
-    ref, port = RefGroth16("bn254"), Groth16("bn254")
+    ref, port = RefGroth16("bn254"), Groth16("bn254", device="cpu")
     rcs, tcs = _circuit(RefCS, x, y), _circuit(ConstraintSystem, x, y)
     # the default setup rng (both packages seed it alike); the suite's
     # conftest may serve the reference's key from its disk cache

@@ -52,6 +52,7 @@ def test_package_imports_without_jax():
     code = """
 import importlib, pkgutil, sys
 import davinci_tpu_torch
+import davinci_tpu_torch.msm.bucket_kernel
 for m in pkgutil.walk_packages(davinci_tpu_torch.__path__, "davinci_tpu_torch."):
     importlib.import_module(m.name)
 bad = sorted(n for n in sys.modules

@@ -59,7 +59,7 @@ def _reference(name, P, scalars):
 
 def _check(name, pts, scalars, fn, reference=False):
     spec = getattr(TC, name)
-    dc = get_device_curve(spec)
+    dc = get_device_curve(spec, "cpu")
     P = dc.encode_points(pts)
     S = torch.as_tensor(pp.scalars_to_limbs(spec, scalars))
     got = dc.decode_points(tuple(a[None] for a in fn(dc, P, S)))[0]
@@ -139,7 +139,7 @@ def test_scalar_layouts_match_reference():
 
 def test_pad_inputs_matches_reference():
     spec, rspec = TC.bn254_g1, RC.bn254_g1
-    dc, R = get_device_curve(spec), ref_curve(rspec)
+    dc, R = get_device_curve(spec, "cpu"), ref_curve(rspec)
     pts, r = _points(spec, 5, 34)
     P = dc.encode_points(pts)
     S = pp.scalars_to_limbs(spec, [r.randrange(spec.r) for _ in pts])

@@ -16,7 +16,7 @@ torch.set_num_threads(1)
 
 
 def _pair(n, batch=()):
-    R, T = ref_ntt(RF.bn254_fr), get_device_ntt(TF.bn254_fr)
+    R, T = ref_ntt(RF.bn254_fr), get_device_ntt(TF.bn254_fr, "cpu")
     r = random.Random(n + len(batch))
     vals = [r.randrange(RF.bn254_fr.p) for _ in range(n * int(np.prod(batch)))]
     shape = batch + (n, -1)

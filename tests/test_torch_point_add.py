@@ -21,7 +21,8 @@ import jax.numpy as jnp
 from davinci_tpu import curves as RC
 from davinci_tpu.ec import get_device_curve as ref_curve
 from davinci_tpu_torch import curves as TC
-from davinci_tpu_torch.ec import cuda_add, get_device_curve
+from davinci_tpu_torch.ec import get_device_curve
+from davinci_tpu_torch.kernels import KERNELS
 from davinci_tpu_torch.msm.pippenger import scalars_to_limbs
 
 torch.set_num_threads(1)
@@ -34,7 +35,7 @@ N = 4
 
 def _curves(name):
     rspec, tspec = getattr(RC, name), getattr(TC, name)
-    return rspec, tspec, ref_curve(rspec), get_device_curve(tspec)
+    return rspec, tspec, ref_curve(rspec), get_device_curve(tspec, "cpu")
 
 
 def _same(ref_pt, t_pt):
@@ -72,11 +73,11 @@ def _operands(rspec, tspec, R, T, n, seed):
 def test_plain_add_matches_reference(name):
     rspec, tspec, R, T = _curves(name)
     A_r, B_r, A_t, B_t, _ = _operands(rspec, tspec, R, T, N, 11)
-    before = [k.launches for k in cuda_add.KERNELS]
+    before = [k.launches for k in KERNELS]
     _same(R.add(A_r, B_r), T.add(A_t, B_t))
     _same(R.double(A_r), T.double(A_t))
     # CPU tensors take the plain version: no kernel launch is counted
-    assert [k.launches for k in cuda_add.KERNELS] == before
+    assert [k.launches for k in KERNELS] == before
 
 
 @pytest.mark.parametrize("name", CURVES)
@@ -137,19 +138,20 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
 
 
 def test_wrapper_rejects_other_devices():
-    T = get_device_curve(TC.bn254_g1)
+    T = get_device_curve(TC.bn254_g1, "cpu")
     P = tuple(a.to("meta") for a in T.identity((2,)))
     with pytest.raises(ValueError):
         T.add(P, P)
 
 
-@pytest.mark.parametrize("kernel", cuda_add.KERNELS, ids=lambda k: k.name)
+@pytest.mark.parametrize("kernel", KERNELS, ids=lambda k: k.name)
 def test_kernel_records_name_their_sources(kernel):
     """`replaces` points at the Pallas kernel's definition, and the CUDA
     source exports the wrapper's symbol."""
     path, line = kernel.replaces.split(":")
     text = (REPO / path).read_text().splitlines()[int(line) - 1]
-    assert re.match(r"def _point_add2?_kernel\(", text), text
+    assert re.match(r"def _(point_add2?|scan|reduce|suffix_reduce|horner)"
+                    r"_kernel\(", text), text
     assert kernel.symbol in (REPO / kernel.source).read_text()
 
 

@@ -53,12 +53,12 @@ def _limbs(z):
 
 def test_matvec_device_matches_host_and_reference():
     cs = _circuit()
-    df = get_device_ntt(TF.bn254_fr).df
+    df = get_device_ntt(TF.bn254_fr, "cpu").df
     n = len(cs.constraints)
     N = 1 << max(1, (n - 1).bit_length())
     z = cs.witness()
     mats = cs._flat_matrices()
-    dcsr = DeviceCSR(mats, R, df.L)
+    dcsr = DeviceCSR(mats, R, df.L, "cpu")
     got = matvec_device(df, dcsr, _limbs(z), N)
     for g, w in zip(got, matvec_flat(mats, R, n, z, N)):
         assert df.decode(g) == w
@@ -73,10 +73,10 @@ def test_matvec_device_matches_host_and_reference():
 
 def test_corrupted_witness_fails_the_device_check():
     cs = _circuit(seed=8, depth=6)
-    df = get_device_ntt(TF.bn254_fr).df
+    df = get_device_ntt(TF.bn254_fr, "cpu").df
     n = len(cs.constraints)
     N = 1 << max(1, (n - 1).bit_length())
     z = list(cs.witness())
     z[2] = (z[2] + 1) % R
-    dcsr = DeviceCSR(cs._flat_matrices(), R, df.L)
+    dcsr = DeviceCSR(cs._flat_matrices(), R, df.L, "cpu")
     assert not bool(satisfied_device(df, *matvec_device(df, dcsr, _limbs(z), N), n))
