@@ -6,7 +6,8 @@
 Phases, one line of output each (any failure raises and exits non-zero):
 
   1. device: the card's name and power limit; build every CUDA kernel of
-     `davinci_tpu_torch/csrc/` with nvcc (one process per source).
+     `davinci_tpu_torch/csrc/` with nvcc, each source at L = 22 and
+     L = 32 (one process per library, all started together).
   2. B1 (G1 point add) on 2^16 random BN254 G1 points plus edge cases,
      limb-equal to its plain PyTorch version; kernel and plain times.
   3. B7 (G2 point add) on 2^14 random BN254 G2 points, the same checks.
@@ -24,21 +25,38 @@ Phases, one line of output each (any failure raises and exits non-zero):
      circuit build, Groth16 setup on the card, one prove with fixed
      randomness that must verify (pairing check), one more timed prove;
      the stage times and the kernel launch counts of the prove, the main
-     path (every G1 MSM on the scan path, the G2 MSM fused).
+     path (every G1 MSM on the scan path, the G2 MSM fused, every field
+     product on B6); each L = 22 kernel must be launched.
+  6. B6 (Montgomery product) on 2^16 random elements plus 0, 1, p - 1 and
+     raw values up to R - 1 through to_mont, for every field it is built
+     for (L = 22 and L = 32), limb-equal to its plain version; kernel and
+     plain times.
+  7. The sequencer's blob path at full size (BLS12-381, L = 32): the
+     trusted setup's load (host), then `pack_batch_blob(..., with_kzg=True)`
+     of a synthetic 60-vote batch (2,193 cells), whose commitment and
+     proof `verify_kzg_proof` (host pairing) must accept, and reject with
+     y + 1; the launch counts of that run, the second path (each L = 32
+     kernel must be launched).  Then a sparse blob's commitment and a
+     4,096-point MSM of 64 tiled points against host oracles, recording
+     the inputs of B1-B5, and B1-B5 at L = 32 against their plain versions
+     on them, as in 4c.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
-without the package beside this file, the script exits non-zero and
-prints no result.
+The line before the last is a JSON object with one entry per kernel and
+limb count; the last line is {"ok": true, "device": {...}}.  Without a
+CUDA device, or without the package beside this file, the script exits
+non-zero and prints no result.
 
 A kernel's bound is the least time the card could take for its work: the
 larger of its bytes (each input read once, each output written once) over
 3.35 TB/s and its 32-bit integer multiplies over the H100 SXM's multiply
 rate, 64 per clock on each of 132 SMs at 1.98 GHz (the CUDA C++
 programming guide's throughput table for compute capability 9.0).  The
-multiplies are counted from csrc/field.cuh: a field mul is 136 32x32->64
-products and 9 low-half products; a complete add (RCB15 Alg 7) is 14
-field muls, a mixed add (Alg 8) 13, a G2 add 14 Fp2 muls of 3 each.
+multiplies are counted from csrc/field.cuh (`mults_per_mul`): with N
+words and REM radix bits left, a field mul is N^2 + N^2 32x32->64
+products and N low halves, with a REM step N + 1 more (145 at L = 22,
+300 at L = 32; B6 reads a raw operand of N + 1 words at L = 22, 153); a
+complete add (RCB15 Alg 7) is 14 field muls, a mixed add (Alg 8) 13, a
+G2 add 14 Fp2 muls of 3 each.
 """
 
 from __future__ import annotations
@@ -57,8 +75,9 @@ SEED = 0xDA71
 
 HBM_BYTES_PER_S = 3.35e12
 MULTS_PER_S = 132 * 64 * 1.98e9
-MULTS_PER_FIELD_MUL = 136 + 9
-FIELD_MULS = {"add": 14, "mixed": 13, "add_g2": 14 * 3}
+FIELD_MULS = {"mul": 1, "add": 14, "mixed": 13, "add_g2": 14 * 3}
+B6_FIELDS = ("bn254_fr", "bn254_fp", "bls12_377_fr", "bls12_381_fr",
+             "bls12_377_fp", "bls12_381_fp")
 
 
 def say(*parts):
@@ -88,11 +107,39 @@ def cuda_ms(fn, reps, warm=True):
     return start.elapsed_time(stop) / reps
 
 
-def bound(nbytes, adds, kind):
-    """(bound_ms, bound_by) for `nbytes` moved and `adds` point adds of
-    `kind` (see FIELD_MULS)."""
+def mults_per_mul(L, raw=False):
+    """32-bit multiplies of one field.cuh Montgomery product at L limbs
+    (`raw`: B6's first operand has the extra word of a value below R)."""
+    n, rem = 12 * L // 32, 12 * L % 32
+    na = n + (1 if raw and rem else 0)
+    return n * na + n * n + (n if rem else 0) + n + (1 if rem else 0)
+
+
+def device_ms(fn, reps, kernel):
+    """Mean device time per call of the CUDA kernels whose name holds
+    `kernel`, from a torch.profiler trace of `reps` calls after one
+    warm-up call; None where the trace holds no device time for them.
+    Beside `cuda_ms`, which also counts the host's launch gaps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) or 0
+             for e in prof.key_averages() if kernel in e.key)
+    return us / reps / 1e3 if us else None
+
+
+def bound(nbytes, ops, kind, L=22):
+    """(bound_ms, bound_by) for `nbytes` moved and `ops` point adds of
+    `kind` (see FIELD_MULS; "mul": B6 products) at L limbs."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = adds * FIELD_MULS[kind] * MULTS_PER_FIELD_MUL / MULTS_PER_S
+    t_ops = (ops * FIELD_MULS[kind] * mults_per_mul(L, raw=kind == "mul")
+             / MULTS_PER_S)
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
@@ -116,9 +163,9 @@ def ptxas_usage(log_path):
     name = None
     for ln in log_path.read_text().splitlines():
         m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)"
-                      r"(?:I\d+(\w+?)E)?", ln)
+                      r"(\w*)'", ln)
         if m:
-            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            name = m.group(1) + ("<Fp2>" if "Fp2" in m.group(2) else "")
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
             spill = m.group(1)
@@ -197,18 +244,19 @@ def point_add_phase(kernel, spec, dc, k, rng):
     Pn = tuple(a[:n] for a in pts)
     Qn = tuple(a[:n] for a in other)
     ms = cuda_ms(lambda: dc.add(Pn, Qn), 20)
+    dev_ms = device_ms(lambda: dc.add(Pn, Qn), 20, "point_add_kernel")
     plain_ms = cuda_ms(lambda: cuda_add.rcb15_plain(dc, Pn, Qn), 3)
     nbytes = 9 * Pn[0][0].numel() * 4 * n  # 6 coordinates in, 3 out
     bound_ms, bound_by = bound(
-        nbytes, n, "add_g2" if dc.ops.coord_ndim == 2 else "add")
+        nbytes, n, "add_g2" if dc.ops.coord_ndim == 2 else "add", dc.df.L)
     return {"n": n, "edge_cases": P[0].shape[0] - n, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def tiled_msm_case(dev, rng_np, n=1 << 17):
-    """A BN254 G1 MSM of n points tiling 64 distinct bases, with random
-    12-bit windows, and its host oracle (per-base scalar sums)."""
+def tiled_msm_case(dev, rng_np, n=1 << 17, spec=None):
+    """A G1 MSM (default BN254) of n points tiling 64 distinct bases, with
+    random 12-bit windows, and its host oracle (per-base scalar sums)."""
     import numpy as np
     import torch
 
@@ -216,14 +264,15 @@ def tiled_msm_case(dev, rng_np, n=1 << 17):
     from davinci_tpu_torch.ec import get_device_curve
     from davinci_tpu_torch.msm.pippenger import NBUCKETS, WINDOW_BITS
 
-    spec = C.bn254_g1
+    spec = spec or C.bn254_g1
     dc = get_device_curve(spec, dev)
     base_pts = [spec.gen.mul(int(k)) for k in rng_np.integers(1, 2**31, 64)]
     P64 = dc.encode_points(base_pts)
     pts = tuple(a.repeat(n // 64, 1) for a in P64)
     W = -(-spec.r.bit_length() // WINDOW_BITS)
     S = rng_np.integers(0, NBUCKETS, size=(n, W), dtype=np.int32)
-    S[:, -1] &= 3  # top window of a reduced 254-bit scalar
+    # the top window of a reduced scalar (2 bits at BN254, 3 at BLS12-381)
+    S[:, -1] &= (1 << (spec.r.bit_length() - WINDOW_BITS * (W - 1))) - 1
     S64 = S.astype(np.int64)
     want = spec.infinity()
     for b in range(64):
@@ -286,35 +335,42 @@ def edge_msm_phase(dev, n=3000):
 
 class Capture:
     """While installed, records the arguments of the first call of each
-    scan-path kernel wrapper (B2-B5), so they can be replayed."""
+    kernel wrapper named (default: the scan path's B2-B5; "point_add" adds
+    B1), so they can be replayed."""
 
     WRAPPERS = ("_bucket_scan", "bucket_reduce_kernel",
                 "suffix_reduce_kernel", "horner_kernel")
 
-    def __init__(self):
+    def __init__(self, names=WRAPPERS):
+        self.names = names
         self.args = {}
 
-    def __enter__(self):
+    @staticmethod
+    def _module(name):
+        from davinci_tpu_torch.ec import cuda_add
         from davinci_tpu_torch.msm import bucket_kernel as bk
 
-        self.saved = {name: getattr(bk, name) for name in self.WRAPPERS}
+        return cuda_add if name == "point_add" else bk
+
+    def __enter__(self):
+        self.saved = {name: getattr(self._module(name), name)
+                      for name in self.names}
         for name, fn in self.saved.items():
             def rec(*args, _name=name, _fn=fn):
                 self.args.setdefault(_name, args)
                 return _fn(*args)
-            setattr(bk, name, rec)
+            setattr(self._module(name), name, rec)
         return self
 
     def __exit__(self, *exc):
-        from davinci_tpu_torch.msm import bucket_kernel as bk
-
         for name, fn in self.saved.items():
-            setattr(bk, name, fn)
+            setattr(self._module(name), name, fn)
 
 
-def scan_kernels_phase(args):
-    """B2-B5 against their plain versions on the main path's inputs: the
-    largest difference, kernel and plain times, the bound."""
+def scan_kernels_phase(args, tag="[4c]"):
+    """B2-B5 (the build for the curve's L) against their plain versions on
+    the main path's inputs: the largest difference, kernel and plain
+    times, the bound."""
     from davinci_tpu_torch import kernels as K
     from davinci_tpu_torch.msm import bucket_kernel as bk
     from davinci_tpu_torch.msm.pippenger import WINDOW_BITS
@@ -334,19 +390,19 @@ def scan_kernels_phase(args):
     check(wbits == WINDOW_BITS, "Horner's doublings per window")
     word = 4
     table = [
-        (K.B2, lambda: bk._bucket_scan(dc, pts_arr, keys_arr, signed),
+        (K.B2.at(L), lambda: bk._bucket_scan(dc, pts_arr, keys_arr, signed),
          lambda: bk._bucket_scan_plain(dc, pts_arr, keys_arr, signed),
          rows * nl * (LP + 1 + 3 * L) * word, mixed_adds, "mixed",
          {"rows": rows, "lanes": nl}),
-        (K.B3, lambda: bk.bucket_reduce_kernel(dc, buckets),
+        (K.B3.at(L), lambda: bk.bucket_reduce_kernel(dc, buckets),
          lambda: bk._bucket_reduce_plain(dc, buckets, C),
          (3 * L * Wt * NB + 6 * L * Wt * C) * word,
          Wt * C * (2 * (NB // C) - 1), "add", {"Wt": Wt, "NB": NB, "C": C}),
-        (K.B4, lambda: bk.suffix_reduce_kernel(dc, s),
+        (K.B4.at(L), lambda: bk.suffix_reduce_kernel(dc, s),
          lambda: bk._suffix_reduce_plain(dc, s),
          (Ks + 2) * 3 * L * M * word, M * (2 * Ks - 1), "add",
          {"K": Ks, "M": M}),
-        (K.B5, lambda: bk.horner_kernel(dc, sums, W, wbits),
+        (K.B5.at(L), lambda: bk.horner_kernel(dc, sums, W, wbits),
          lambda: bk._horner_plain(dc, sums, W, wbits),
          3 * L * (W + 1) * B * word, B * (W - 1) * (wbits + 1), "add",
          {"W": W, "B": B}),
@@ -359,12 +415,35 @@ def scan_kernels_phase(args):
         check(err == 0, f"{kernel.name} differs from its plain version")
         ms = cuda_ms(run, 5)
         plain_ms = cuda_ms(plain, 1, warm=False)
-        bound_ms, bound_by = bound(nbytes, adds, kind)
+        bound_ms, bound_by = bound(nbytes, adds, kind, L)
         res[kernel.name] = {**shape, "adds": adds, "max_abs_err": err,
                             "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": bound_ms, "bound_by": bound_by}
-        say(f"[4c] {kernel.name} {res[kernel.name]}")
+        say(f"{tag} {kernel.name} {res[kernel.name]}")
     return res
+
+
+def captured_add_phase(args):
+    """B1 (the build for the curve's L) against its plain version on the
+    first point add a main path ran."""
+    import torch
+
+    from davinci_tpu_torch.ec import cuda_add
+
+    dc, p, q = args["point_add"]
+    kernel = cuda_add.B1.at(dc.df.L)
+    got = cuda_add.point_add(dc, p, q)
+    want = cuda_add.rcb15_plain(dc, p, q)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    check(err == 0, f"{kernel.name} differs from its plain version")
+    n = torch.broadcast_shapes(p[0].shape, q[0].shape)[0]
+    ms = cuda_ms(lambda: cuda_add.point_add(dc, p, q), 20)
+    plain_ms = cuda_ms(lambda: cuda_add.rcb15_plain(dc, p, q), 3)
+    bound_ms, bound_by = bound(9 * n * dc.df.L * 4, n, "add", dc.df.L)
+    return kernel.name, {"n": n, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by}
 
 
 def ballot_circuit():
@@ -390,6 +469,138 @@ def ballot_circuit():
     say(f"[5] c1 built: {len(cs.constraints)} constraints, "
         f"{cs.num_variables} variables in {build_s:.3f} s")
     return cs, [bw.inputs_hash()], build_s
+
+
+def mont_mul_phase(dev, n=1 << 16):
+    """B6 against its plain version for every field it is built for:
+    random elements, 0, 1, p - 1, and raw values up to R - 1 through
+    to_mont on either side; kernel and plain times on the random pairs."""
+    import numpy as np
+    import torch
+
+    from davinci_tpu_torch import fields as F
+    from davinci_tpu_torch import kernels as K
+    from davinci_tpu_torch.ff import cuda_mul, get_device_field
+
+    res = {}
+    rng = random.Random(SEED + 6)
+    for name in B6_FIELDS:
+        spec = getattr(F, name)
+        df = get_device_field(spec, dev)
+        L, p = df.L, spec.p
+        kernel = K.B6.at(L)
+
+        def draw(bound, k):
+            return [rng.getrandbits(12 * L) % bound for _ in range(k)]
+
+        xs = draw(p, n - 3) + [0, 1, p - 1]
+        ys = draw(p, n - 3) + [p - 1, 0, 1]
+        raw = draw(1 << (12 * L), 1021) + [(1 << (12 * L)) - 1, p, 0]
+        a, b = df.encode(xs), df.encode(ys)
+        c = torch.as_tensor(
+            np.array([[(v >> (12 * j)) & 0xFFF for j in range(L)] for v in raw],
+                     np.int32), device=dev)
+        err = 0
+        for x, y in ((a, b), (c, b[:1024]), (b[:1024], c), (a, b[:1])):
+            err = max(err, max_err(cuda_mul.mont_mul(df, x, y),
+                                   cuda_mul.mont_mul_plain(df, x, y)))
+        torch.cuda.synchronize()
+        check(err == 0, f"{kernel.name} differs from its plain version "
+                        f"on {name}")
+        spot = list(range(3)) + [n - 3, n - 2, n - 1]
+        check(df.decode(df.mul(a[spot], b[spot]))
+              == [xs[i] * ys[i] % p for i in spot], f"{name} vs host")
+        check(df.decode(df.to_mont(c[-4:])) == [v % p for v in raw[-4:]],
+              f"{name} to_mont vs host")
+        ms = cuda_ms(lambda: cuda_mul.mont_mul(df, a, b), 20)
+        dev_ms = device_ms(lambda: cuda_mul.mont_mul(df, a, b), 20,
+                           "mont_mul_kernel")
+        plain_ms = cuda_ms(lambda: cuda_mul.mont_mul_plain(df, a, b), 3)
+        bound_ms, bound_by = bound(3 * n * L * 4, n, "mul", L)
+        res[name] = {"kernel": kernel.name, "n": n, "max_abs_err": err,
+                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+        say(f"[6] {name} {res[name]}")
+    return res
+
+
+def synthetic_batch(rng, n_votes):
+    """A batch with the attributes `pack_batch_blob` reads (results and
+    re-encrypted ballots of FIELDS_PER_BALLOT * 4 coordinates each)."""
+    from types import SimpleNamespace
+
+    from davinci_tpu_torch import fields as F
+    from davinci_tpu_torch.state.blobcodec import COORDS
+
+    def ballot():
+        vals = [rng.randrange(F.BN254_R) for _ in range(COORDS)]
+        return SimpleNamespace(coords=lambda: list(vals))
+
+    votes = [SimpleNamespace(vote_id=rng.randrange(F.BN254_R),
+                             address=rng.randrange(2**160),
+                             ballot_index=rng.randrange(2**32),
+                             weight=rng.randrange(1, 2**64),
+                             reencrypted_ballot=ballot())
+             for _ in range(n_votes)]
+    return SimpleNamespace(new_results=ballot(), voters_count=n_votes,
+                           votes=votes, root_before=rng.randrange(F.BN254_R))
+
+
+def blob_phase(dev, kernels, rng, rng_np):
+    """The blob path (phase 7); returns (summary, {kernel: result})."""
+    import torch
+
+    from davinci_tpu_torch import curves as C
+    from davinci_tpu_torch import spec
+    from davinci_tpu_torch.blobs import kzg
+    from davinci_tpu_torch.blobs.setup import load_trusted_setup
+    from davinci_tpu_torch.msm import pippenger
+    from davinci_tpu_torch.state.blobcodec import pack_batch_blob
+
+    out = {}
+    t0 = time.perf_counter()
+    g1_brp, _ = load_trusted_setup()
+    out["setup_load_s"] = time.perf_counter() - t0
+    batch = synthetic_batch(rng, spec.VOTES_PER_BATCH)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    packed = pack_batch_blob(0xB10B, batch, with_kzg=True)
+    torch.cuda.synchronize()
+    out["pack_s"] = time.perf_counter() - t0
+    out["launches"] = {k.name: k.launches for k in kernels}
+    for k in kernels:
+        check(k.launches > 0, f"{k.name} was not launched by the blob path")
+    check(packed["n_cells"] == 33 + 60 * 36, "blob cells")
+    com, proof = (bytes.fromhex(packed[key]) for key in ("commitment",
+                                                          "kzg_proof"))
+    z, y = packed["z"], packed["y"]
+    t0 = time.perf_counter()
+    check(kzg.verify_kzg_proof(com, z, y, proof), "KZG proof does not verify")
+    out["verify_s"] = time.perf_counter() - t0
+    check(not kzg.verify_kzg_proof(com, z, (y + 1) % kzg.R, proof),
+          "KZG proof verifies with y + 1")
+    say(f"[7] 60-vote blob: {packed['n_cells']} cells, commitment "
+        f"{packed['commitment'][:16]}..., proof verifies, y + 1 refused; "
+        f"{out}")
+
+    cells = [rng.randrange(kzg.R) for _ in range(5)]
+    want = C.bls381_g1.infinity()
+    for c, g in zip(cells, g1_brp):
+        want = want.add(g.mul(c))
+    check(kzg.blob_to_commitment(kzg.Blob(cells)) == kzg.compress_g1(want),
+          "sparse blob commitment differs from the host oracle")
+
+    case = tiled_msm_case(dev, rng_np, n=kzg.BLOB_CELLS, spec=C.bls381_g1)
+    with Capture(Capture.WRAPPERS + ("point_add",)) as cap:
+        out["msm"] = msm_phase(pippenger._msm_scan, case)
+    check(sorted(cap.args) == sorted(cap.names), "B1-B5 recorded")
+    say(f"[7] sparse blob commitment and the tiled 4,096-point BLS12-381 "
+        f"MSM equal their host oracles: {out['msm']}")
+    name, add = captured_add_phase(cap.args)
+    say(f"[7] {name} {add}")
+    res = {name: add, **scan_kernels_phase(cap.args, "[7]")}
+    return out, res
 
 
 def groth16_phase(dev, cs, public, kernels, stages):
@@ -474,13 +685,15 @@ def main() -> int:
     times = cuda_build.build_all()
     build_s = time.perf_counter() - t0
     # ptxas's report of every kernel library (built now or earlier)
-    regs = {name: usage for src in sorted(cuda_build.CSRC.glob("*.cu"))
-            for name, usage in ptxas_usage(cuda_build.ptxas_log(src.stem))}
-    say(f"[1] built {sorted(times)} in {build_s:.3f} s; ptxas: {regs}")
+    regs = {f"{name}@L{limbs}": usage
+            for src, limbs in cuda_build.all_targets()
+            for name, usage in ptxas_usage(cuda_build.ptxas_log(src, limbs))}
+    say(f"[1] built {times} in {build_s:.3f} s; ptxas: {regs}")
 
     rng = random.Random(SEED)
     rng_np = np.random.default_rng(SEED)
-    kernels = K.KERNELS
+    kernels = [k for k in K.KERNELS if k.limbs == 22]  # c1's path
+    kernels32 = [k for k in K.KERNELS if k.limbs == 32]  # the blob path
     g1 = get_device_curve(C.bn254_g1, dev)
     g2 = get_device_curve(C.bn254_g2, dev)
     res = {K.B1.name: point_add_phase(K.B1, C.bn254_g1, g1, 256, rng)}
@@ -507,13 +720,23 @@ def main() -> int:
     c1["build_s"] = build_s
 
     say(f"[5] c1 summary {json.dumps(c1)}")
+
+    b6 = mont_mul_phase(dev)
+    res[K.B6.name] = b6["bn254_fr"]  # the c1 NTT's field
+    res[K.B6_L32.name] = b6["bls12_381_fp"]  # the blob path's base field
+    blob, blob_res = blob_phase(dev, kernels32, rng, rng_np)
+    res.update(blob_res)
+    say(f"[7] blob summary {json.dumps(blob)}")
+
+    launches = {**c1["prove_launches"], **blob["launches"]}
     say(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": c1["prove_launches"][k.name],
+         "replaces": k.replaces, "limbs": k.limbs,
+         "launches": launches[k.name],
          **{key: res[k.name][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None}
-        for k in kernels
+        for k in K.KERNELS
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-// The bucket-scan MSM path's kernels for BN254 G1 (L = 22, p < 2^254):
+// The bucket-scan MSM path's kernels for G1, built once per limb count
+// (-DDAVINCI_L): L = 22 (BN254) and L = 32 (BLS12-381/377):
 //
 //   B2 davinci_bucket_scan_g1    replaces davinci_tpu/msm/bucket_kernel.py
 //                                ::_scan_kernel (sorted-stream bucket scan)
@@ -37,12 +38,16 @@
 
 namespace {
 
+constexpr int L = DAVINCI_L;
+using F = Fp<L>;
+using Cst = Consts<L>;
+constexpr int N = F::N;
 constexpr int LP = (12 * L + 15) / 16;  // packed 16-bit planes per point
 static_assert(2 * N <= LP, "the value's 32-bit words come from the planes");
 constexpr int THREADS = 128;
 
-__device__ __forceinline__ void set_identity(Fp& X, Fp& Y, Fp& Z,
-                                             const Consts& c) {
+__device__ __forceinline__ void set_identity(F& X, F& Y, F& Z,
+                                             const Cst& c) {
 #pragma unroll
   for (int k = 0; k < N; k++) {
     X.w[k] = 0;
@@ -52,26 +57,26 @@ __device__ __forceinline__ void set_identity(Fp& X, Fp& Y, Fp& Z,
 }
 
 // B2.  planes: (rows, LP, nl) uint32 words, plane j = bits [16j, 16j+16)
-// of x in the low and of y in the high half (plane 16 is zero for values
-// below 2^256); keys: (rows, nl) sorted keys; out: (rows, nl, 3L).
+// of x in the low and of y in the high half (at L = 22 plane 16 is zero
+// for values below 2^256); keys: (rows, nl) sorted keys; out: (rows, nl, 3L).
 __global__ void __launch_bounds__(THREADS)
     bucket_scan_kernel(const uint32_t* __restrict__ planes,
                        const int32_t* __restrict__ keys,
-                       int32_t* __restrict__ out, const Consts c,
+                       int32_t* __restrict__ out, const Cst c,
                        long long rows, long long nl, int is_signed) {
   const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= nl) return;
-  Fp b3, one, zero;
+  F b3, one, zero;
   set_b3(b3, c);
   set_words(one, c.one);
 #pragma unroll
   for (int k = 0; k < N; k++) zero.w[k] = 0;
-  Fp X, Y, Z;
+  F X, Y, Z;
   int prev = 0;
   for (long long r = 0; r < rows; r++) {
     const int key = keys[r * nl + l];
     const uint32_t* pl = planes + r * LP * nl + l;
-    Fp x, y;
+    F x, y;
 #pragma unroll
     for (int k = 0; k < N; k++) {
       const uint32_t lo = pl[(2 * k) * nl], hi = pl[(2 * k + 1) * nl];
@@ -107,19 +112,19 @@ __global__ void __launch_bounds__(THREADS)
                          int32_t* __restrict__ ax, int32_t* __restrict__ ay,
                          int32_t* __restrict__ az, int32_t* __restrict__ bx,
                          int32_t* __restrict__ by, int32_t* __restrict__ bz,
-                         const Consts c, long long wt, long long nb,
+                         const Cst c, long long wt, long long nb,
                          long long cw) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= wt * cw) return;
   const long long w = t / cw, col = t % cw, K = nb / cw;
   const long long s_in = wt * nb, s_out = wt * cw;
-  Fp b3, RX, RY, RZ, BX, BY, BZ;
+  F b3, RX, RY, RZ, BX, BY, BZ;
   set_b3(b3, c);
   set_identity(RX, RY, RZ, c);
   set_identity(BX, BY, BZ, c);
   for (long long k = K - 1; k >= 0; k--) {
     const long long o = w * nb + k * cw + col;
-    Fp SX, SY, SZ;
+    F SX, SY, SZ;
     load(SX, sx + o, s_in);
     load(SY, sy + o, s_in);
     load(SZ, sz + o, s_in);
@@ -140,17 +145,17 @@ __global__ void __launch_bounds__(THREADS)
 __global__ void __launch_bounds__(THREADS)
     suffix_reduce_kernel(const int32_t* __restrict__ s,
                          int32_t* __restrict__ a, int32_t* __restrict__ b,
-                         const Consts c, long long K, long long M) {
+                         const Cst c, long long K, long long M) {
   const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= M) return;
   const long long plane = (long long)L * M;
-  Fp b3, RX, RY, RZ, BX, BY, BZ;
+  F b3, RX, RY, RZ, BX, BY, BZ;
   set_b3(b3, c);
   set_identity(RX, RY, RZ, c);
   set_identity(BX, BY, BZ, c);
   for (long long k = K - 1; k >= 0; k--) {
     const int32_t* sk = s + k * 3 * plane + m;
-    Fp SX, SY, SZ;
+    F SX, SY, SZ;
     load(SX, sk, M);
     load(SY, sk + plane, M);
     load(SZ, sk + 2 * plane, M);
@@ -173,11 +178,11 @@ __global__ void __launch_bounds__(THREADS)
                   const int32_t* __restrict__ sy,
                   const int32_t* __restrict__ sz, int32_t* __restrict__ ox,
                   int32_t* __restrict__ oy, int32_t* __restrict__ oz,
-                  const Consts c, long long W, long long B, long long wbits) {
+                  const Cst c, long long W, long long B, long long wbits) {
   const long long bi = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (bi >= B) return;
   const long long WB = W * B;
-  Fp b3, TX, TY, TZ;
+  F b3, TX, TY, TZ;
   set_b3(b3, c);
   const long long top = (W - 1) * B + bi;
   load(TX, sx + top, WB);
@@ -186,7 +191,7 @@ __global__ void __launch_bounds__(THREADS)
   for (long long w = W - 2; w >= 0; w--) {
     for (long long i = 0; i < wbits; i++)
       rcb15(TX, TY, TZ, TX, TY, TZ, TX, TY, TZ, b3, c);
-    Fp SX, SY, SZ;
+    F SX, SY, SZ;
     const long long o = w * B + bi;
     load(SX, sx + o, WB);
     load(SY, sy + o, WB);
@@ -198,9 +203,9 @@ __global__ void __launch_bounds__(THREADS)
   store(oz + bi, TZ, B);
 }
 
-Consts consts_of(const uint32_t* words) {
-  Consts c;
-  std::memcpy(&c, words, sizeof(Consts));
+Cst consts_of(const uint32_t* words) {
+  Cst c;
+  std::memcpy(&c, words, sizeof(c));
   return c;
 }
 

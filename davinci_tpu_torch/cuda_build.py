@@ -1,10 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each `csrc/<name>.cu` compiles with nvcc for `sm_90a` into its own shared
-library with a plain C interface, loaded through ctypes.  A library is
-named by a hash of the sources, built at first use into
+Each `csrc/<name>.cu` compiles with nvcc for `sm_90a` into one shared
+library with a plain C interface per limb count in `LIMBS` (the field
+core `csrc/field.cuh` is a template on L; `-DDAVINCI_L` picks the
+instantiation), loaded through ctypes.  A library is named by its source,
+its L and a hash of the sources, built at first use into
 `build/davinci_tpu_torch/` at the repository root, and reused while the
-sources are unchanged.  `build_all` starts one nvcc per source, all at
+sources are unchanged.  `build_all` starts one nvcc per library, all at
 once.  Nothing here runs at import: this module imports on machines
 without the CUDA toolkit.
 """
@@ -18,6 +20,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -26,8 +29,9 @@ NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LIMBS = (22, 32)  # 12-bit limbs per field element the kernels are built for
 
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple[str, int], ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -49,51 +53,69 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def library_path(name: str) -> Path:
-    return BUILD_DIR / f"{name}-{_digest()}.so"
+def library_path(name: str, limbs: int) -> Path:
+    return BUILD_DIR / f"{name}-L{limbs}-{_digest()}.so"
 
 
-def ptxas_log(name: str) -> Path:
+def ptxas_log(name: str, limbs: int) -> Path:
     """nvcc's -Xptxas -v report (registers, spills) of the last build."""
-    return BUILD_DIR / f"{name}-{_digest()}.ptxas.txt"
+    return BUILD_DIR / f"{name}-L{limbs}-{_digest()}.ptxas.txt"
 
 
-def build_all(names=None) -> dict[str, float]:
-    """Compile the named sources (default: every csrc/*.cu) that are not
-    built yet, one nvcc process per source started together.  Returns
-    {name: seconds}; raises RuntimeError with nvcc's output on failure."""
-    if names is None:
-        names = sorted(f.stem for f in CSRC.glob("*.cu"))
+def all_targets() -> list[tuple[str, int]]:
+    """(source stem, L) of every library: each csrc/*.cu at each L."""
+    return [(f.stem, limbs) for f in sorted(CSRC.glob("*.cu"))
+            for limbs in LIMBS]
+
+
+def build_all(targets=None) -> dict[str, float]:
+    """Compile the (name, L) libraries (default: `all_targets()`) that are
+    not built yet, one nvcc process each, started together.  Returns
+    {"name@L": seconds}; raises RuntimeError with nvcc's output on
+    failure."""
+    if targets is None:
+        targets = all_targets()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        out = library_path(name)
+    for name, limbs in targets:
+        out = library_path(name, limbs)
         if out.exists():
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
+        cmd = [nvcc(), *NVCC_FLAGS, f"-DDAVINCI_L={limbs}", "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[(name, limbs)] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, time.perf_counter())
-    times, failed = {}, []
-    for name, (proc, tmp, t0) in procs.items():  # wait for every nvcc
+
+    def finish(proc):  # nvcc's output and the moment it ended
         log, _ = proc.communicate()
-        times[name] = time.perf_counter() - t0
+        return log, time.perf_counter()
+
+    with ThreadPoolExecutor(max(len(procs), 1)) as pool:
+        ends = {key: pool.submit(finish, proc)
+                for key, (proc, _, _) in procs.items()}
+    times, failed = {}, []
+    for (name, limbs), (proc, tmp, t0) in procs.items():
+        log, t1 = ends[(name, limbs)].result()
+        times[f"{name}@L{limbs}"] = t1 - t0
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            failed.append(f"nvcc failed for {name}.cu at L={limbs}:\n{log}")
             continue
-        ptxas_log(name).write_text(log)
-        os.replace(tmp, library_path(name))
+        ptxas_log(name, limbs).write_text(log)
+        os.replace(tmp, library_path(name, limbs))
     if failed:
         raise RuntimeError("\n".join(failed))
     return times
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
+def load(name: str, limbs: int) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu built for L = `limbs`, built
+    first if needed."""
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get((name, limbs))
         if lib is None:
-            build_all([name])
-            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+            build_all([(name, limbs)])
+            lib = _libs[(name, limbs)] = ctypes.CDLL(
+                str(library_path(name, limbs)))
         return lib

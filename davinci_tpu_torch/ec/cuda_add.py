@@ -5,7 +5,8 @@ version.  Counterpart of `davinci_tpu/ec/pallas_add.py`.
 `point_add` / `point_add_fp2` take (X, Y, Z) tuples of Montgomery limb
 tensors, (..., L) or (..., 2, L), broadcast against each other.  On a CPU
 tensor they run `rcb15_plain`; on a CUDA tensor they launch the kernel of
-`csrc/point_add.cu` or raise.  Outputs are canonical limbs either way, so
+`csrc/point_add.cu` built for the field's limb count (G1: L = 22 or
+32; G2: L = 22) or raise.  Outputs are canonical limbs either way, so
 kernel and plain version agree limb for limb.  `rcb15_mixed_plain` is
 the plain version of the mixed addition (Algorithm 8) that the bucket-scan
 kernel B2 runs (`csrc/field.cuh`).
@@ -13,14 +14,10 @@ kernel B2 runs (`csrc/field.cuh`).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from davinci_tpu_torch.ff.mod import from_wide, to_wide
-from davinci_tpu_torch.kernels import B1, B7, check_tensors
-
-_KERNEL_L = 22  # limbs per base-field element the kernels are built for
+from davinci_tpu_torch.kernels import B1, B7, check_tensors, field_consts
 
 
 def rcb15_plain(curve, p, q):
@@ -96,34 +93,19 @@ def _int_of(limbs: torch.Tensor) -> int:
     return sum(int(v) << (12 * i) for i, v in enumerate(limbs.tolist()))
 
 
-def _words(x: int, n: int = 8) -> list[int]:
-    return [(x >> (32 * k)) & 0xFFFFFFFF for k in range(n)]
-
-
 def _consts(curve):
     """The kernels' Consts struct (csrc/field.cuh) as a ctypes array,
-    cached per curve; raises for a curve the kernels are not built for."""
+    cached per curve.  Raises for a curve no kernel build serves: the
+    builds are L = 22 and L = 32 for G1 (B1-B5), L = 22 for G2 (B7)."""
     cached = getattr(curve, "_cuda_add_consts", None)
     if cached is not None:
         return cached
-    df = curve.df
-    p = df.spec.p
-    if df.L != _KERNEL_L or p.bit_length() > 254:
-        raise ValueError(
-            f"{df.spec.name}: the CUDA kernels are built for L={_KERNEL_L}"
-            " and moduli below 2^254"
-        )
     if curve.ops.coord_ndim == 2:
-        b3 = [_int_of(curve.b3[0]), _int_of(curve.b3[1])]
-        nr = _int_of(curve.ops.nr_mont)
-        nr_is_m1 = int(curve.ops.nr_is_m1)
+        consts = field_consts(
+            B7, curve.df.spec, b3=(_int_of(curve.b3[0]), _int_of(curve.b3[1])),
+            nr=_int_of(curve.ops.nr_mont), nr_is_m1=curve.ops.nr_is_m1)
     else:
-        b3 = [_int_of(curve.b3), 0]
-        nr, nr_is_m1 = 0, 0
-    np0 = (-pow(p, -1, 1 << 32)) % (1 << 32)
-    words = (_words(p) + _words(b3[0]) + _words(b3[1]) + _words(nr)
-             + [np0, nr_is_m1] + _words(_int_of(df.one_mont)))
-    consts = (ctypes.c_uint32 * len(words))(*words)
+        consts = field_consts(B1, curve.df.spec, b3=(_int_of(curve.b3), 0))
     curve._cuda_add_consts = consts
     return consts
 
@@ -140,5 +122,5 @@ def _launch(kernel, curve, p, q):
     n = flat[0].shape[0]
     out = [torch.empty_like(flat[0]) for _ in range(3)]
     if n:
-        kernel.launch(device, (*flat, *out), consts, (n,))
+        kernel.at(curve.df.L).launch(device, (*flat, *out), consts, (n,))
     return tuple(o.reshape(shape) for o in out)

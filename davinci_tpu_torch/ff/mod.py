@@ -1,6 +1,13 @@
-"""Batched modular (Montgomery) arithmetic on limb tensors: the plain
-PyTorch field layer under the NTT, the witness fold and the affine
-normalisation.  Counterpart of `davinci_tpu/ff/mod.py`.
+"""Batched modular (Montgomery) arithmetic on limb tensors: the field
+layer under the NTT, the witness fold and the affine normalisation.
+Counterpart of `davinci_tpu/ff/mod.py`.
+
+Every Montgomery product (`mul`, `mul_w`, `square`, `to_mont`,
+`from_mont`, `pow_const`, `inv`, and so the Fp2 products of `ff/quad.py`)
+goes through `ff/cuda_mul.mont_mul`: kernel B6 on CUDA tensors, which
+raises for a field it has no build for, and on CPU tensors the plain
+composition below (`mul_plain`).  Additions and subtractions are plain
+PyTorch on both.
 
 Boundary format (the reference's, so tensors compare element for element):
   * a field element is (..., L) int32 12-bit limbs, least significant
@@ -28,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as Fn
 
+from davinci_tpu_torch.ff import cuda_mul
 from davinci_tpu_torch.fields import LIMB_BITS, LIMB_MASK, FieldSpec
 
 WIDE_BITS = 2 * LIMB_BITS
@@ -171,8 +179,8 @@ class DeviceField:
     """
 
     coord_ndim = 1
-    # elements per chunk of a mul: the float64 outer product is
-    # (L/2)^2 * 8 bytes per element (~1 KB at L=22)
+    # elements per chunk of a plain mul: the float64 outer product is
+    # (L/2)^2 * 8 bytes per element (~1 KB at L=22); B6 needs no cap
     _MUL_CHUNK = 1 << 19
 
     def __init__(self, spec: FieldSpec, device="cuda"):
@@ -188,10 +196,10 @@ class DeviceField:
         self.nprime_limbs = self._t(spec.to_limbs_unreduced(spec.n_prime))
         self.zero = torch.zeros(self.L, dtype=torch.int32, device=self.device)
         self.one_mont = self._t(spec.to_limbs(spec.r_mod_p))
+        self.raw_one = self._t(spec.to_limbs(1))  # REDC(a * 1) = from_mont
         self.r2 = self._t(spec.to_limbs(spec.r2_mod_p))
         self._p_w = to_wide(self.p_limbs)
         self._np_w = to_wide(self.nprime_limbs)
-        self.one_w = to_wide(self.one_mont)
         top = 1 << WIDE_BITS
         # borrow-free constants: x + bias - p over n+1 limbs (csub), and
         # a - b + p + bias over n limbs (sub); bias adds 2^24 to every limb
@@ -231,8 +239,7 @@ class DeviceField:
 
     def from_mont(self, mont: torch.Tensor) -> torch.Tensor:
         """Montgomery limbs -> raw residue limbs (REDC of the value)."""
-        w = to_wide(mont)
-        return from_wide(self._chunked(self._redc_w, w))
+        return self.mul(mont, self.raw_one)
 
     # -- wide-limb core -----------------------------------------------------
 
@@ -277,7 +284,9 @@ class DeviceField:
         return self._redc_w(t)
 
     def mul_w(self, a, b):
-        return self._chunked(self._mul_direct_w, a, b)
+        if a.device.type == "cpu":
+            return self._chunked(self._mul_direct_w, a, b)
+        return to_wide(cuda_mul.mont_mul(self, from_wide(a), from_wide(b)))
 
     def add_w(self, a, b):
         # a + b < 2p < R, so n limbs suffice
@@ -291,26 +300,19 @@ class DeviceField:
         return self._csub_w(
             normalize(self._sub_c - a, WIDE_BITS, WIDE_BITS + 2))
 
-    def pow_const_w(self, a, e: int):
-        acc = self.one_w.expand(a.shape)
-        if e == 0:
-            return acc.clone()
-        base = a
-        for i in range(e.bit_length()):
-            if (e >> i) & 1:
-                acc = self.mul_w(acc, base)
-            if i + 1 < e.bit_length():
-                base = self.mul_w(base, base)
-        return acc
-
     def select_w(self, cond, a, b):
         return torch.where(cond.unsqueeze(-1), a, b)
 
     # -- core ops (12-bit limb boundary) ------------------------------------
 
     def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """Montgomery product: (a*b*R^{-1}) mod p."""
-        return from_wide(self.mul_w(to_wide(a), to_wide(b)))
+        """Montgomery product: (a*b*R^{-1}) mod p (B6 on CUDA tensors)."""
+        return cuda_mul.mont_mul(self, a, b)
+
+    def mul_plain(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """The plain PyTorch Montgomery product (B6's plain version)."""
+        return from_wide(self._chunked(self._mul_direct_w, to_wide(a),
+                                       to_wide(b)))
 
     def square(self, a):
         return self.mul(a, a)
@@ -339,7 +341,16 @@ class DeviceField:
 
     def pow_const(self, a, e: int):
         """a^e for a host-known exponent (square-and-multiply)."""
-        return from_wide(self.pow_const_w(to_wide(a), e))
+        acc = self.one_mont.expand(a.shape)
+        if e == 0:
+            return acc.clone()
+        base = a
+        for i in range(e.bit_length()):
+            if (e >> i) & 1:
+                acc = self.mul(acc, base)
+            if i + 1 < e.bit_length():
+                base = self.mul(base, base)
+        return acc
 
     def inv(self, a):
         """Batched inversion via Fermat (a^{p-2}); inv(0) returns 0."""

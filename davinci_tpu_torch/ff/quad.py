@@ -35,7 +35,6 @@ class DeviceQuadExt:
         self.zero = torch.zeros((2, df.L), dtype=torch.int32,
                                 device=self.device)
         self.one_mont = torch.stack([df.one_mont, df.zero])
-        self.one_w = to_wide(self.one_mont)
         self._nr_w = to_wide(self.nr_mont)
 
     # -- host boundary ------------------------------------------------------
@@ -115,7 +114,7 @@ class DeviceQuadExt:
         a0, a1 = w[..., 0, :], w[..., 1, :]
         sq = df.mul_w(torch.stack([a0, a1]), torch.stack([a0, a1]))
         norm = df.sub_w(sq[0], df.mul_w(self._nr_w, sq[1]))
-        ninv = df.pow_const_w(norm, df.spec.p - 2)
+        ninv = to_wide(df.inv(from_wide(norm)))
         c = df.mul_w(torch.stack([a0, a1]), ninv)
         return from_wide(torch.stack([c[0], df.neg_w(c[1])], dim=-2))
 

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from davinci_tpu_torch.fields import LIMB_BITS
-from davinci_tpu_torch.ff.mod import conv_cols, normalize
+from davinci_tpu_torch.ff.mod import normalize
 
 _CHUNK = 1 << 18  # terms per index-add step: bounds transient conv memory
 _EXTRA = 6  # carry drain limbs: a column stays below 2^55, 55/12 < 5
@@ -64,6 +64,17 @@ class DeviceCSR:
             ))
 
 
+def _term_cols(cl, zl):
+    """(C, L) x (C, L) limbs below 2^12 -> (C, 2L) int64 product columns
+    (the last is 0), shifted and added limb by limb as the reference does:
+    integer work, exact, and no float64 on the card."""
+    C, L = cl.shape
+    out = torch.zeros((C, 2 * L), dtype=torch.int64, device=cl.device)
+    for i in range(L):
+        out[:, i:i + L] += cl[:, i:i + 1] * zl
+    return out
+
+
 def _accumulate(var_idx, coeff_ids, row_ids, table_limbs, n_rows: int,
                 Z_limbs):
     """Index-add the per-term limb convolutions into (n_rows, 2L) int64 row
@@ -75,7 +86,7 @@ def _accumulate(var_idx, coeff_ids, row_ids, table_limbs, n_rows: int,
         sl = slice(s, s + _CHUNK)
         zl = Z_limbs[var_idx[sl]].to(torch.int64)  # (C, L) < 2^12
         cl = table_limbs[coeff_ids[sl]]  # (C, L) < 2^12
-        acc.index_add_(0, row_ids[sl], conv_cols(cl, zl))
+        acc.index_add_(0, row_ids[sl], _term_cols(cl, zl))
     return acc
 
 

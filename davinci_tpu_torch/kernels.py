@@ -1,6 +1,6 @@
-"""The port's hand-written CUDA kernels: one record per kernel (where it
-lives, which TPU kernel it replaces, a count of its launches) and the one
-launch path they share.
+"""The port's hand-written CUDA kernels: one record per kernel and limb
+count (where it lives, which TPU kernel it replaces, a count of its
+launches) and the one launch path they share.
 
 Every kernel is a C function of a `csrc/*.cu` library (see `cuda_build`)
 with the signature
@@ -10,7 +10,10 @@ with the signature
 
 that launches on the given stream and returns `cudaGetLastError()`.
 `Kernel.launch` calls it on PyTorch's current stream, raises on a nonzero
-code and only then adds one to `launches`.
+code and only then adds one to `launches`.  Each library is built per
+limb count L (`cuda_build.LIMBS`); a kernel has one record per L it is
+built for, so the counts show which instantiation ran: `B1` is the
+L = 22 build of the G1 add, `B1.at(32)` (`B1_L32`) the L = 32 one.
 """
 
 from __future__ import annotations
@@ -24,28 +27,53 @@ from davinci_tpu_torch import cuda_build
 
 
 class Kernel:
-    """One hand-written kernel and a count of its launches."""
+    """One hand-written kernel at one limb count, and a count of its
+    launches."""
 
     def __init__(self, name: str, symbol: str, source: str, replaces: str,
-                 n_ptr: int, n_int: int):
+                 n_ptr: int, n_int: int, limbs: int = 22):
         self.name = name
         self.symbol = symbol
         self.source = source
         self.replaces = replaces
         self.n_ptr = n_ptr
         self.n_int = n_int
+        self.limbs = limbs
         self.launches = 0
+        self.builds = {limbs: self}  # every record of this kernel, by L
+        self._cfn = None  # the bound C function, once loaded
+
+    def build_for(self, limbs: int) -> "Kernel":
+        """The record of the same kernel built for L = `limbs`."""
+        k = Kernel(f"{self.name}_l{limbs}", self.symbol, self.source,
+                   self.replaces, self.n_ptr, self.n_int, limbs)
+        k.builds = self.builds
+        self.builds[limbs] = k
+        return k
+
+    def at(self, limbs: int) -> "Kernel":
+        """The build for L = `limbs`; raises where there is none."""
+        k = self.builds.get(limbs)
+        if k is None:
+            raise ValueError(
+                f"{self.name}: built for L = "
+                f"{' and '.join(map(str, sorted(self.builds)))} only, "
+                f"not L = {limbs}")
+        return k
 
     def _fn(self):
-        fn = getattr(cuda_build.load(Path(self.source).stem), self.symbol)
-        fn.argtypes = (
-            [ctypes.c_void_p] * self.n_ptr
-            + [ctypes.POINTER(ctypes.c_uint32)]
-            + [ctypes.c_longlong] * self.n_int
-            + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        return fn
+        if self._cfn is None:
+            lib = cuda_build.load(Path(self.source).stem, self.limbs)
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = (
+                [ctypes.c_void_p] * self.n_ptr
+                + [ctypes.POINTER(ctypes.c_uint32)]
+                + [ctypes.c_longlong] * self.n_int
+                + [ctypes.c_void_p]
+            )
+            fn.restype = ctypes.c_int
+            self._cfn = fn
+        return self._cfn
 
     def launch(self, device, tensors, consts, ints):
         """Launch on `device`'s current stream: `tensors` are the CUDA
@@ -77,8 +105,32 @@ def check_tensors(kernel, tensors):
     return device
 
 
+def field_consts(kernel, spec, b3=(0, 0), nr=0, nr_is_m1=False):
+    """The Consts struct of csrc/field.cuh for field `spec` as a ctypes
+    uint32 array (b3 and nr: Montgomery-form ints of the curve).  Raises
+    where no build of `kernel` serves the field: L without a build, or a
+    modulus of 32N - 1 bits or more (2p must fit N words)."""
+    L = spec.num_limbs
+    kernel.at(L)
+    n = 12 * L // 32  # 32-bit words of an element in the kernels
+    p = spec.p
+    if p.bit_length() >= 32 * n:
+        raise ValueError(
+            f"{kernel.name}: {spec.name} has a {p.bit_length()}-bit modulus;"
+            f" the L = {L} build takes moduli below 2^{32 * n - 1}")
+
+    def w(x):
+        return [(x >> (32 * k)) & 0xFFFFFFFF for k in range(n)]
+
+    np0 = (-pow(p, -1, 1 << 32)) % (1 << 32)
+    vals = (w(p) + w(b3[0]) + w(b3[1]) + w(nr) + [np0, int(nr_is_m1)]
+            + w(spec.r_mod_p))
+    return (ctypes.c_uint32 * len(vals))(*vals)
+
+
 _POINT_ADD = "davinci_tpu_torch/csrc/point_add.cu"
 _BUCKET = "davinci_tpu_torch/csrc/bucket.cu"
+_MONT_MUL = "davinci_tpu_torch/csrc/mont_mul.cu"
 _REF = "davinci_tpu/msm/bucket_kernel.py"
 
 B1 = Kernel("point_add_g1", "davinci_point_add_g1", _POINT_ADD,
@@ -91,6 +143,12 @@ B4 = Kernel("suffix_reduce_g1", "davinci_suffix_reduce_g1", _BUCKET,
             f"{_REF}:365", 3, 2)
 B5 = Kernel("horner_g1", "davinci_horner_g1", _BUCKET,
             f"{_REF}:476", 6, 3)
+B6 = Kernel("mont_mul", "davinci_mont_mul", _MONT_MUL,
+            "davinci_tpu/ff/pallas_mul.py:31", 3, 3)
 B7 = Kernel("point_add_g2", "davinci_point_add_g2", _POINT_ADD,
             "davinci_tpu/ec/pallas_add.py:260", 9, 1)
-KERNELS = (B1, B2, B3, B4, B5, B7)
+# the L = 32 builds (BLS12-381/377 G1 and base fields); B7 has none
+B1_L32, B2_L32, B3_L32, B4_L32, B5_L32, B6_L32 = (
+    k.build_for(32) for k in (B1, B2, B3, B4, B5, B6))
+KERNELS = (B1, B2, B3, B4, B5, B6, B7,
+           B1_L32, B2_L32, B3_L32, B4_L32, B5_L32, B6_L32)

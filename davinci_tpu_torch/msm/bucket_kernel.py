@@ -1,8 +1,9 @@
 """The bucket-scan MSM path's kernels and the PyTorch around them.
 Counterpart of `davinci_tpu/msm/bucket_kernel.py`.
 
-Four hand-written CUDA kernels (`csrc/bucket.cu`, BN254 G1 only), each
-with its plain PyTorch version beside its wrapper:
+Four hand-written CUDA kernels (`csrc/bucket.cu`, G1 only, built for
+L = 22 (BN254) and L = 32 (BLS12-381/377)), each with its plain PyTorch
+version beside its wrapper:
 
   * B2 `_bucket_scan`: walks each lane of the sorted, column-major point
     stream, folding a point into the running accumulator with the mixed
@@ -49,12 +50,13 @@ def _require(kernel, cond, what):
 
 
 def _cuda_curve(kernel, curve, tensors):
-    """Checks before a launch: a G1 curve the kernels are built for (the
-    Consts array raises otherwise) and contiguous operands."""
+    """Checks before a launch: a G1 curve with a build of the kernel for
+    its limb count (L = 22 or 32; the Consts array raises otherwise) and
+    contiguous operands.  Returns that build and the Consts array."""
     _require(kernel, curve.ops.coord_ndim == 1, "built for G1 (Fp) only")
     _require(kernel, all(t.is_contiguous() for t in tensors),
              "operands must be contiguous")
-    return _consts(curve)
+    return kernel.at(curve.df.L), _consts(curve)
 
 
 # -- plane packing --------------------------------------------------------
@@ -113,10 +115,10 @@ def _bucket_scan(curve, pts_arr, keys_arr, signed=False):
              f"keys shaped {tuple(keys_arr.shape)}")
     if device.type == "cpu":
         return _bucket_scan_plain(curve, pts_arr, keys_arr, signed)
-    consts = _cuda_curve(B2, curve, (pts_arr, keys_arr))
+    kernel, consts = _cuda_curve(B2, curve, (pts_arr, keys_arr))
     out = torch.empty((rows, nl, 3 * L), dtype=torch.int32, device=device)
     if out.numel():
-        B2.launch(device, (pts_arr, keys_arr, out), consts,
+        kernel.launch(device, (pts_arr, keys_arr, out), consts,
                   (rows, nl, int(signed)))
     return out
 
@@ -238,11 +240,11 @@ def bucket_reduce_kernel(curve, buckets):
     C = REDUCE_C if NB % REDUCE_C == 0 else NB
     if device.type == "cpu":
         return _bucket_reduce_plain(curve, buckets, C)
-    consts = _cuda_curve(B3, curve, buckets)
+    kernel, consts = _cuda_curve(B3, curve, buckets)
     outs = [torch.empty((L, Wt, C), dtype=torch.int32, device=device)
             for _ in range(6)]
     if Wt:
-        B3.launch(device, (*buckets, *outs), consts, (Wt, NB, C))
+        kernel.launch(device, (*buckets, *outs), consts, (Wt, NB, C))
     return tuple(outs[:3]), tuple(outs[3:])
 
 
@@ -271,11 +273,11 @@ def suffix_reduce_kernel(curve, s):
     _require(B4, L3 == 3 * curve.df.L and K > 0, f"s shaped {tuple(s.shape)}")
     if device.type == "cpu":
         return _suffix_reduce_plain(curve, s)
-    consts = _cuda_curve(B4, curve, (s,))
+    kernel, consts = _cuda_curve(B4, curve, (s,))
     A = torch.empty((L3, M), dtype=torch.int32, device=device)
     B = torch.empty_like(A)
     if M:
-        B4.launch(device, (s, A, B), consts, (K, M))
+        kernel.launch(device, (s, A, B), consts, (K, M))
     return A, B
 
 
@@ -307,12 +309,12 @@ def horner_kernel(curve, sums, W: int, wbits: int):
              "coordinates differ in shape")
     if device.type == "cpu":
         return _horner_plain(curve, sums, W, wbits)
-    consts = _cuda_curve(B5, curve, sums)
+    kernel, consts = _cuda_curve(B5, curve, sums)
     B = WB // W
     outs = tuple(torch.empty((L, B), dtype=torch.int32, device=device)
                  for _ in range(3))
     if B:
-        B5.launch(device, (*sums, *outs), consts, (W, B, wbits))
+        kernel.launch(device, (*sums, *outs), consts, (W, B, wbits))
     return outs
 
 

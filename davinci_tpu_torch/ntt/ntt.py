@@ -6,7 +6,8 @@ Constant-geometry Stockham DIF: every stage halves, butterflies,
 gathers twiddles and permutes with host-precomputed (logn, n) permutation
 and (logn, n/2) twiddle-exponent tables; natural order in and out.  Data
 is (..., n, L) int32 Montgomery limbs at the boundary and stays in wide
-limbs across the stages.
+limbs across the stages; every product is `DeviceField.mul` (kernel B6
+on CUDA tensors).
 """
 
 from __future__ import annotations
@@ -72,19 +73,18 @@ class DeviceNTT:
 
     def _butterflies(self, x: torch.Tensor, wpow, n: int) -> torch.Tensor:
         """Constant-geometry Stockham DIF stages: natural order in/out.
-        wpow: (n/2, L) powers of omega."""
+        wpow: (n/2, L) powers of omega.  The data stays in wide limbs
+        between stages; each stage's product (B6 on CUDA) takes the
+        difference in 12-bit limbs and the twiddles as they are."""
         df = self.df
         perm, exps = self._stage_tables(n)
         half = n // 2
         w = to_wide(x)
-        wp = to_wide(wpow)
         for s in range(n.bit_length() - 1):
             u = w[..., :half, :]
             v = w[..., half:, :]
-            z = torch.cat(
-                [df.add_w(u, v), df.mul_w(wp[exps[s]], df.sub_w(u, v))],
-                dim=-2,
-            )
+            prod = df.mul(wpow[exps[s]], from_wide(df.sub_w(u, v)))
+            z = torch.cat([df.add_w(u, v), to_wide(prod)], dim=-2)
             w = z.index_select(-2, perm[s])
         return from_wide(w)
 

@@ -1,10 +1,12 @@
 """davinci_tpu_torch's CUDA kernels on the card (skipped without one).
 
-The hand-written kernels B1 (G1 point add), B7 (G2 point add) and the
-scan path's B2-B5 (bucket scan, bucket reduce, suffix reduce, Horner) are
-held limb for limb against their plain PyTorch versions on the same CUDA
-tensors, each launch counted once, and the MSMs that run on them (the
-scan path for G1, the fused pipeline for G2) against a host sum.
+The hand-written kernels B1 (G1 point add), B7 (G2 point add), the scan
+path's B2-B5 (bucket scan, bucket reduce, suffix reduce, Horner) and B6
+(Montgomery product) are held limb for limb against their plain PyTorch
+versions on the same CUDA tensors, each launch counted once, at L = 22
+and, for B1, B2 and B6, at L = 32 (BLS12-381); and the MSMs that run on
+them (the scan path for G1, the fused pipeline for G2) against a host
+sum.
 This file imports nothing of the JAX package; on a machine without JAX
 run it without the suite's conftest:
 
@@ -17,8 +19,10 @@ import pytest
 import torch
 
 from davinci_tpu_torch import curves as C
+from davinci_tpu_torch import fields as F
 from davinci_tpu_torch import kernels as K
 from davinci_tpu_torch.ec import cuda_add, get_device_curve
+from davinci_tpu_torch.ff import cuda_mul, get_device_field
 from davinci_tpu_torch.msm import bucket_kernel as bk
 from davinci_tpu_torch.msm import msm
 from davinci_tpu_torch.msm import pippenger as pp
@@ -47,11 +51,12 @@ def _operands(dc, spec, n, seed):
     return cat(lhs), cat(rhs)
 
 
-@pytest.mark.parametrize("name", ["bn254_g1", "bn254_g2"])
+@pytest.mark.parametrize("name", ["bn254_g1", "bn254_g2", "bls381_g1"])
 def test_kernel_matches_plain(dev, name):
     spec = getattr(C, name)
     dc = get_device_curve(spec, dev)
     kernel = cuda_add.B7 if dc.ops.coord_ndim == 2 else cuda_add.B1
+    kernel = kernel.at(dc.df.L)
     A, B = _operands(dc, spec, 300, 1)
     before = kernel.launches
     got = dc.add(A, B)
@@ -72,7 +77,7 @@ def test_kernel_rejects_wrong_dtype(dev):
         dc.add(P, P)
 
 
-@pytest.mark.parametrize("name", ["bn254_g1", "bn254_g2"])
+@pytest.mark.parametrize("name", ["bn254_g1", "bn254_g2", "bls381_g1"])
 def test_msm_on_the_card_matches_host(dev, name):
     spec = getattr(C, name)
     dc = get_device_curve(spec, dev)
@@ -120,17 +125,19 @@ def _projective(dc, n, seed):
 
 
 @pytest.mark.parametrize("signed", [False, True])
-def test_bucket_scan_matches_plain(dev, signed):
-    dc = get_device_curve(C.bn254_g1, dev)
+@pytest.mark.parametrize("name", ["bn254_g1", "bls381_g1"])
+def test_bucket_scan_matches_plain(dev, signed, name):
+    spec = getattr(C, name)
+    dc = get_device_curve(spec, dev)
     r = random.Random(3)
     rows, nl = 5, 300
-    pts = [C.bn254_g1.gen.mul(r.randrange(1, C.bn254_g1.r))
-           for _ in range(rows * nl)]
+    pts = [spec.gen.mul(r.randrange(1, spec.r)) for _ in range(rows * nl)]
     packed, _ = bk.pack_points(dc, *dc.encode_points(pts))
     pts_arr = packed.reshape(rows, nl, -1).transpose(1, 2).contiguous()
     keys = torch.randint(0, 9, (rows, nl), generator=_gen(4))
     keys = torch.sort(keys, dim=0).values.to(torch.int32).to(dev)
-    _equal_once(K.B2, lambda: bk._bucket_scan(dc, pts_arr, keys, signed),
+    _equal_once(K.B2.at(dc.df.L),
+                lambda: bk._bucket_scan(dc, pts_arr, keys, signed),
                 lambda: bk._bucket_scan_plain(dc, pts_arr, keys, signed))
 
 
@@ -184,3 +191,39 @@ def test_scan_msm_launches_every_kernel(dev):
     for i, b in enumerate(base):
         want = want.add(b.mul(sum(scalars[i::8]) % spec.r))
     assert got == want
+
+
+# -- B6, the Montgomery product ------------------------------------------------
+
+B6_FIELDS = ["bn254_fr", "bn254_fp", "bls12_377_fr", "bls12_381_fr",
+             "bls12_377_fp", "bls12_381_fp"]
+
+
+@pytest.mark.parametrize("name", B6_FIELDS)
+def test_mont_mul_matches_plain(dev, name):
+    """Random elements, 0, 1, p - 1 and raw values up to R - 1 (to_mont's
+    input, on either side); a broadcast operand; one launch each."""
+    spec = getattr(F, name)
+    df = get_device_field(spec, dev)
+    kernel = K.B6.at(df.L)
+    r = random.Random(11)
+    p, R = spec.p, 1 << (12 * df.L)
+    xs = [r.randrange(p) for _ in range(997)] + [0, 1, p - 1]
+    ys = [r.randrange(p) for _ in range(997)] + [p - 1, 0, 1]
+    raw = [r.randrange(R) for _ in range(997)] + [R - 1, p, 0]
+    a, b = df.encode(xs), df.encode(ys)
+    c = torch.as_tensor(  # unreduced limbs
+        [[(v >> (12 * j)) & 0xFFF for j in range(df.L)] for v in raw],
+        dtype=torch.int32, device=dev)
+    for x, y in ((a, b), (c, b), (b, c), (a, b[:1]), (a[:1], c)):
+        _equal_once(kernel, lambda: cuda_mul.mont_mul(df, x, y),
+                    lambda: cuda_mul.mont_mul_plain(df, x, y))
+    assert df.decode(df.mul(a, b)) == [x * y % p for x, y in zip(xs, ys)]
+    assert df.decode(df.to_mont(c)) == [v % p for v in raw]
+
+
+def test_mont_mul_refuses_unsupported_fields(dev):
+    df = get_device_field(F.secp256k1_fp, dev)
+    a = df.zero[None]
+    with pytest.raises(ValueError):
+        df.mul(a, a)

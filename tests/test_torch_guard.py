@@ -2,11 +2,14 @@
 
 * The host modules it carries over are verbatim copies: each equals its
   reference file once `davinci_tpu` is rewritten to `davinci_tpu_torch`.
-  `hash/poseidon.py` holds only the host half of its reference.
+  `hash/poseidon.py` holds only the host half of its reference; the
+  KZG trusted setup is the same bytes; `blobs/kzg.py` keeps the text of
+  the reference's host functions.
 * Importing the package pulls in neither `jax` nor `davinci_tpu`: the
   machine with the GPU has no JAX.
 """
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -22,6 +25,7 @@ VERBATIM = [
     "elgamal/__init__.py", "elgamal/bjj.py", "elgamal/core.py",
     "groth16/r1cs.py",
     "circuits/__init__.py", "circuits/gadgets.py", "circuits/ballotproof.py",
+    "blobs/__init__.py", "blobs/setup.py", "state/blobcodec.py",
 ]
 
 
@@ -32,6 +36,31 @@ def _rewritten(rel):
 @pytest.mark.parametrize("rel", VERBATIM)
 def test_host_module_is_a_verbatim_copy(rel):
     assert (PORT / rel).read_text() == _rewritten(rel)
+
+
+def test_trusted_setup_is_the_same_bytes():
+    rel = "blobs/kzg_trusted_setup.txt"
+    data = (PORT / rel).read_bytes()
+    assert len(data) == 807177 and data == (REF / rel).read_bytes()
+
+
+KZG_HOST = ["Blob", "_domain", "compress_g1", "evaluate_barycentric",
+            "verify_kzg_proof", "compute_evaluation_point",
+            "split_48b_to_limbs", "versioned_hash"]
+
+
+def _definitions(path):
+    text = path.read_text()
+    return {node.name: ast.get_source_segment(text, node)
+            for node in ast.parse(text).body
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef))}
+
+
+@pytest.mark.parametrize("name", KZG_HOST)
+def test_kzg_host_functions_keep_the_reference_text(name):
+    ref = _definitions(REF / "blobs/kzg.py")[name]
+    assert _definitions(PORT / "blobs/kzg.py")[name] == ref.replace(
+        "davinci_tpu", "davinci_tpu_torch")
 
 
 def test_poseidon_is_the_host_half_of_its_reference():
@@ -53,6 +82,7 @@ def test_package_imports_without_jax():
 import importlib, pkgutil, sys
 import davinci_tpu_torch
 import davinci_tpu_torch.msm.bucket_kernel
+import davinci_tpu_torch.blobs.kzg, davinci_tpu_torch.state.blobcodec
 for m in pkgutil.walk_packages(davinci_tpu_torch.__path__, "davinci_tpu_torch."):
     importlib.import_module(m.name)
 bad = sorted(n for n in sys.modules

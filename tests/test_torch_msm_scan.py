@@ -82,14 +82,14 @@ def _same(ref, port):
         assert np.array_equal(np.asarray(a), b.numpy())
 
 
-def _host_points(n, seed):
+def _host_points(n, seed, spec=SPEC):
     r = random.Random(seed)
-    return [SPEC.gen.mul(r.randrange(1, SPEC.r)) for _ in range(n)], r
+    return [spec.gen.mul(r.randrange(1, spec.r)) for _ in range(n)], r
 
 
 def _projective(dc, n, seed):
     """n random points with Z != 1 as (n, L) x3, and their host values."""
-    pts, _ = _host_points(2 * n, seed)
+    pts, _ = _host_points(2 * n, seed, dc.spec)
     enc = dc.encode_points(pts)
     out = dc.add(tuple(a[:n] for a in enc), tuple(a[n:] for a in enc))
     return out, [p.add(q) for p, q in zip(pts[:n], pts[n:])]
@@ -97,16 +97,18 @@ def _projective(dc, n, seed):
 
 def _t(p, shape):
     """(N, L) x3 -> transposed (L, *shape) x3."""
+    L = p[0].shape[-1]
     return tuple(a.T.reshape((L,) + shape).contiguous() for a in p)
 
 
 def _decode_t(dc, p):
     """Transposed (L, ...) x3 -> host points in row-major batch order."""
+    L = p[0].shape[0]
     return dc.decode_points(tuple(a.reshape(L, -1).T for a in p))
 
 
-def _host_msm(pts, scalars):
-    acc = SPEC.infinity()
+def _host_msm(pts, scalars, spec=SPEC):
+    acc = spec.infinity()
     for p, s in zip(pts, scalars):
         acc = acc.add(p.mul(s))
     return acc
@@ -371,6 +373,70 @@ def test_groth16_on_the_scan_path_matches_reference(R, scan_cols, monkeypatch):
     assert not port.verify(vk, got, [y + 1])
 
 
+# -- L = 32: BLS12-381 G1, the blob commitment's curve ----------------------------
+
+
+@pytest.fixture
+def dc381():
+    return get_device_curve(TC.bls381_g1, "cpu")
+
+
+@pytest.fixture
+def R381(monkeypatch):
+    monkeypatch.delenv("DAVINCI_MSM_KERNEL", raising=False)
+    return ref_curve(RC.bls381_g1)
+
+
+def test_l32_planes_and_stages_match_reference(dc381, R381, monkeypatch):
+    """At L = 32 (24 packed planes): the planes and plain B5 equal the
+    reference's limb for limb; plain B3 + B4 through _bucket_reduce_t
+    (C = 4, K = 4) equal its window sums (its CPU branch adds in another
+    order, so the points are compared)."""
+    monkeypatch.setattr(bk, "REDUCE_C", 4)
+    pts, _ = _host_points(6, 52, TC.bls381_g1)
+    pts[3] = TC.bls381_g1.infinity()
+    P = dc381.affine_encoding(dc381.encode_points(pts))
+    packed, is_inf = bk.pack_points(dc381, *P)
+    assert packed.shape == (6, 24)
+    _same(rbk.pack_points(R381, *(_j(a) for a in P)), (packed, is_inf))
+
+    Wt, nb = 2, 16
+    proj, _ = _projective(dc381, 6, 53)
+    r = random.Random(54)
+    idx = [r.randrange(6) for _ in range(Wt * (nb + 2))]
+    buckets = _t(tuple(a[idx] for a in proj), (Wt, nb + 2))
+    want = rpp._bucket_reduce_t(R381, tuple(_j(a) for a in buckets),
+                                shifted=True)
+    assert _decode_t(dc381, pp._bucket_reduce_t(dc381, buckets, shifted=True)) \
+        == _decode_t(dc381, tuple(torch.as_tensor(np.array(a)) for a in want))
+
+    W, B = 3, 2
+    sums = tuple(a.T.contiguous() for a in proj)  # (L, W * B)
+    _same(rpp._horner_t(R381, tuple(_j(a) for a in sums), W),
+          bk.horner_kernel(dc381, sums, W, pp.WINDOW_BITS))
+
+
+def test_l32_msm_scan_matches_reference_msm(dc381, R381, scan_cols):
+    """The scan path at L = 32 (plain B2-B5, scan width 16, C = 32) with
+    precomputed planes equals the reference's msm and the host, with
+    scalars 0, 1 and r - 1, a run of equal scalars and an infinity base."""
+    spec = TC.bls381_g1
+    pts, r = _host_points(24, 55, spec)
+    pts[5] = spec.infinity()
+    scalars = [r.randrange(spec.r) for _ in pts]
+    scalars[:3] = [0, 1, spec.r - 1]
+    scalars[8:20] = [scalars[8]] * 12
+    P = dc381.encode_points(pts)
+    S = pp.scalars_to_limbs(spec, scalars)
+    out = pp._msm_scan(dc381, P, torch.as_tensor(S),
+                       precomp=bk.pack_points(dc381, *P))
+    got = dc381.decode_points(tuple(a[None] for a in out))[0]
+    want = R381.decode_points(tuple(a[None] for a in ref_msm(
+        R381, tuple(_j(a) for a in P), jnp.asarray(S))))[0]
+    assert _coords(got) == _coords(want)
+    assert got == _host_msm(pts, scalars, spec)
+
+
 # -- the repairs -------------------------------------------------------------------
 
 
@@ -398,7 +464,10 @@ def test_entry_points_default_to_the_card():
 def test_kernel_registry_lists_the_slice():
     assert [k.name for k in KERNELS] == [
         "point_add_g1", "bucket_scan_g1", "bucket_reduce_g1",
-        "suffix_reduce_g1", "horner_g1", "point_add_g2"]
+        "suffix_reduce_g1", "horner_g1", "mont_mul", "point_add_g2",
+        "point_add_g1_l32", "bucket_scan_g1_l32", "bucket_reduce_g1_l32",
+        "suffix_reduce_g1_l32", "horner_g1_l32", "mont_mul_l32"]
+    assert [k.limbs for k in KERNELS] == [22] * 7 + [32] * 6
 
 
 # -- the reference's interpret-mode kernels ---------------------------------------
