@@ -40,11 +40,21 @@ Phases, one line of output each (any failure raises and exits non-zero):
      4,096-point MSM of 64 tiled points against host oracles, recording
      the inputs of B1-B5, and B1-B5 at L = 32 against their plain versions
      on them, as in 4c.
+  8. The point-add experiment (`davinci_tpu_torch.ec.addk_exp`, kernel B8
+     in four designs of the BN254 G1 complete add: v2d, lazy, kara and
+     the addonly diagnostic): its `run_variant` for every variant at the
+     experiment's n = 22 x 2,048, the third path (each variant must be
+     launched); then, at that n and at 2^20, each variant against its
+     plain version on the experiment's points plus the edge cases and
+     points rescaled near p - 1, and v2d, lazy and kara against B1 on the
+     same points; per variant the 30-launch chain's time (events, and
+     device time from the profiler), the plain time and the bound, with
+     B1's chain beside them.
 
-The line before the last is a JSON object with one entry per kernel and
-limb count; the last line is {"ok": true, "device": {...}}.  Without a
-CUDA device, or without the package beside this file, the script exits
-non-zero and prints no result.
+The line before the last is a JSON object with one entry per kernel (B8:
+per variant) and limb count; the last line is {"ok": true, "device":
+{...}}.  Without a CUDA device, or without the package beside this file,
+the script exits non-zero and prints no result.
 
 A kernel's bound is the least time the card could take for its work: the
 larger of its bytes (each input read once, each output written once) over
@@ -56,7 +66,9 @@ words and REM radix bits left, a field mul is N^2 + N^2 32x32->64
 products and N low halves, with a REM step N + 1 more (145 at L = 22,
 300 at L = 32; B6 reads a raw operand of N + 1 words at L = 22, 153); a
 complete add (RCB15 Alg 7) is 14 field muls, a mixed add (Alg 8) 13, a
-G2 add 14 Fp2 muls of 3 each.
+G2 add 14 Fp2 muls of 3 each.  Every B8 variant stands on the strict
+add's count, the one yardstick of the four; addonly, which multiplies
+nothing, on its bytes alone.
 """
 
 from __future__ import annotations
@@ -78,6 +90,7 @@ MULTS_PER_S = 132 * 64 * 1.98e9
 FIELD_MULS = {"mul": 1, "add": 14, "mixed": 13, "add_g2": 14 * 3}
 B6_FIELDS = ("bn254_fr", "bn254_fp", "bls12_377_fr", "bls12_381_fr",
              "bls12_377_fp", "bls12_381_fp")
+ADDK_SIZES = (22 * 2048, 1 << 20)  # the experiment's n, and a full card
 
 
 def say(*parts):
@@ -157,15 +170,27 @@ def flat(t):
     return [t]
 
 
+def kernel_name(mangled):
+    """The `..._kernel` name inside a mangled entry function name (it is
+    prefixed by its length: "15addk_v2d_kernel"), with "<Fp2>" for the
+    Fp2 instantiation; None where there is none."""
+    for m in re.finditer(r"\d+", mangled):
+        for k in range(len(m.group())):
+            name = mangled[m.end():m.end() + int(m.group()[k:])]
+            if re.fullmatch(r"[a-z_][a-z0-9_]*_kernel", name):
+                rest = mangled[m.end() + len(name):]
+                return name + ("<Fp2>" if "Fp2" in rest else "")
+    return None
+
+
 def ptxas_usage(log_path):
     """(kernel, "R registers, S bytes spilled") for each entry function of
     an nvcc -Xptxas -v report."""
     name = None
     for ln in log_path.read_text().splitlines():
-        m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)"
-                      r"(\w*)'", ln)
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            name = m.group(1) + ("<Fp2>" if "Fp2" in m.group(2) else "")
+            name = kernel_name(m.group(1))
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
             spill = m.group(1)
@@ -603,6 +628,81 @@ def blob_phase(dev, kernels, rng, rng_np):
     return out, res
 
 
+def addk_phase(dev):
+    """Phase 8: the point-add experiment's entry path, then each B8
+    variant against its plain version and B1; returns ({kernel name:
+    result at the experiment's n}, {variant: launches})."""
+    import torch
+
+    from davinci_tpu_torch import curves as C
+    from davinci_tpu_torch import kernels as K
+    from davinci_tpu_torch.ec import addk_exp, get_device_curve
+
+    dc = get_device_curve(C.bn254_g1, dev)
+    iters = 30
+    n0 = ADDK_SIZES[0]
+    pts, a, b = addk_exp.experiment_points(dc, n0)
+    for k in K.B8.values():
+        k.launches = 0
+    for v in addk_exp.KERNELS:
+        addk_exp.run_variant(v, dc, a, b, pts, n0, iters)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in K.B8.values()}
+    for name, count in launches.items():
+        check(count > 0, f"{name} was not launched by the experiment")
+    say(f"[8] the experiment's run_variant, every variant at n={n0}: "
+        f"launches {launches}")
+
+    res = {}
+    for n in ADDK_SIZES:
+        pts, a, b = addk_exp.experiment_points(dc, n)
+        hard_a, hard_b = addk_exp.hard_cases(dc, pts)
+        rows_a = tuple(torch.cat(c) for c in zip(a, hard_a))
+        rows_b = tuple(torch.cat(c) for c in zip(b, hard_b))
+        A = tuple(x.T.contiguous() for x in rows_a)
+        B = tuple(x.T.contiguous() for x in rows_b)
+        b1 = tuple(x.T for x in dc.add(rows_a, rows_b))
+        an = tuple(x.T.contiguous() for x in a)
+        bn = tuple(x.T.contiguous() for x in b)
+        nbytes = 9 * dc.df.L * 4 * n
+
+        def chain(add, o, q):
+            for _ in range(iters):
+                o = add(o, q)
+
+        out = {}
+        for v in addk_exp.KERNELS:
+            kernel = K.B8[v]
+            got = addk_exp.add_2d(dc, v, *A, *B)
+            err = max_err(got, addk_exp.add_2d_plain(dc, v, *A, *B))
+            check(err == 0, f"{kernel.name} differs from its plain version "
+                            f"at n={n}")
+            if v != "addonly":
+                check(max_err(got, b1) == 0, f"{kernel.name} differs from B1 "
+                                             f"at n={n}")
+            ms = addk_exp.run_variant(v, dc, a, b, pts, n, iters)
+            add = lambda o, q, v=v: addk_exp.add_2d(dc, v, *o, *q)
+            dev_ms = device_ms(lambda: chain(add, an, bn), 1,
+                               f"addk_{v}_kernel")
+            plain_ms = cuda_ms(
+                lambda: addk_exp.add_2d_plain(dc, v, *an, *bn), 1, warm=False)
+            bound_ms, bound_by = bound(nbytes, 0 if v == "addonly" else n,
+                                       "add")
+            out[kernel.name] = {
+                "n": n, "checked": A[0].shape[1], "max_abs_err": err,
+                "ms": ms, "device_ms": dev_ms and dev_ms / iters,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+            say(f"[8] {kernel.name} {out[kernel.name]}")
+        ms = cuda_ms(lambda: chain(dc.add, a, b), 1) / iters
+        dev_ms = device_ms(lambda: chain(dc.add, a, b), 1, "point_add_kernel")
+        say(f"[8] B1 on the same rows, a {iters}-launch chain: {{'n': {n}, "
+            f"'ms': {ms}, 'device_ms': {dev_ms and dev_ms / iters}}}")
+        if n == n0:
+            res = out
+    return res, launches
+
+
 def groth16_phase(dev, cs, public, kernels, stages):
     """Setup on the card, a prove with fixed randomness that must verify
     (and fail on a wrong public input), one more timed prove."""
@@ -692,7 +792,9 @@ def main() -> int:
 
     rng = random.Random(SEED)
     rng_np = np.random.default_rng(SEED)
-    kernels = [k for k in K.KERNELS if k.limbs == 22]  # c1's path
+    b8 = list(K.B8.values())  # the point-add experiment's path
+    # c1's path
+    kernels = [k for k in K.KERNELS if k.limbs == 22 and k not in b8]
     kernels32 = [k for k in K.KERNELS if k.limbs == 32]  # the blob path
     g1 = get_device_curve(C.bn254_g1, dev)
     g2 = get_device_curve(C.bn254_g2, dev)
@@ -727,8 +829,10 @@ def main() -> int:
     blob, blob_res = blob_phase(dev, kernels32, rng, rng_np)
     res.update(blob_res)
     say(f"[7] blob summary {json.dumps(blob)}")
+    addk_res, addk_launches = addk_phase(dev)
+    res.update(addk_res)
 
-    launches = {**c1["prove_launches"], **blob["launches"]}
+    launches = {**c1["prove_launches"], **blob["launches"], **addk_launches}
     say(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "limbs": k.limbs,

@@ -1,5 +1,5 @@
-"""The port's hand-written CUDA kernels: one record per kernel and limb
-count (where it lives, which TPU kernel it replaces, a count of its
+"""The port's hand-written CUDA kernels: one record per kernel (B8: per
+variant) and limb count (where it lives, which TPU kernel it replaces, a count of its
 launches) and the one launch path they share.
 
 Every kernel is a C function of a `csrc/*.cu` library (see `cuda_build`)
@@ -131,6 +131,7 @@ def field_consts(kernel, spec, b3=(0, 0), nr=0, nr_is_m1=False):
 _POINT_ADD = "davinci_tpu_torch/csrc/point_add.cu"
 _BUCKET = "davinci_tpu_torch/csrc/bucket.cu"
 _MONT_MUL = "davinci_tpu_torch/csrc/mont_mul.cu"
+_ADDK = "davinci_tpu_torch/csrc/addk.cu"
 _REF = "davinci_tpu/msm/bucket_kernel.py"
 
 B1 = Kernel("point_add_g1", "davinci_point_add_g1", _POINT_ADD,
@@ -150,5 +151,10 @@ B7 = Kernel("point_add_g2", "davinci_point_add_g2", _POINT_ADD,
 # the L = 32 builds (BLS12-381/377 G1 and base fields); B7 has none
 B1_L32, B2_L32, B3_L32, B4_L32, B5_L32, B6_L32 = (
     k.build_for(32) for k in (B1, B2, B3, B4, B5, B6))
+# B8: the point-add experiment's four G1 add designs, BN254 at L = 22 only
+# (ec/addk_exp.py); the field's constants are compiled in (consts NULL)
+B8 = {v: Kernel(f"addk_{v}", f"davinci_addk_{v}", _ADDK,
+                "scripts/addk_exp.py:354", 9, 1)
+      for v in ("v2d", "lazy", "kara", "addonly")}
 KERNELS = (B1, B2, B3, B4, B5, B6, B7,
-           B1_L32, B2_L32, B3_L32, B4_L32, B5_L32, B6_L32)
+           B1_L32, B2_L32, B3_L32, B4_L32, B5_L32, B6_L32, *B8.values())

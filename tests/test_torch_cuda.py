@@ -6,7 +6,9 @@ path's B2-B5 (bucket scan, bucket reduce, suffix reduce, Horner) and B6
 versions on the same CUDA tensors, each launch counted once, at L = 22
 and, for B1, B2 and B6, at L = 32 (BLS12-381); and the MSMs that run on
 them (the scan path for G1, the fused pipeline for G2) against a host
-sum.
+sum.  B8, the point-add experiment's four designs of the BN254 G1 add
+(ec/addk_exp.py), is held against its plain versions and, for the three
+that compute the canonical add, against B1.
 This file imports nothing of the JAX package; on a machine without JAX
 run it without the suite's conftest:
 
@@ -21,7 +23,7 @@ import torch
 from davinci_tpu_torch import curves as C
 from davinci_tpu_torch import fields as F
 from davinci_tpu_torch import kernels as K
-from davinci_tpu_torch.ec import cuda_add, get_device_curve
+from davinci_tpu_torch.ec import addk_exp, cuda_add, get_device_curve
 from davinci_tpu_torch.ff import cuda_mul, get_device_field
 from davinci_tpu_torch.msm import bucket_kernel as bk
 from davinci_tpu_torch.msm import msm
@@ -227,3 +229,41 @@ def test_mont_mul_refuses_unsupported_fields(dev):
     a = df.zero[None]
     with pytest.raises(ValueError):
         df.mul(a, a)
+
+
+# -- B8, the point-add experiment's designs of the G1 add -------------------------
+
+
+@pytest.mark.parametrize("variant", addk_exp.KERNELS)
+def test_addk_matches_plain_and_b1(dev, variant):
+    """The experiment's points, the edge cases and points rescaled near
+    p - 1 (the lazy variant's largest inputs), in the (L, n) layout."""
+    dc = get_device_curve(C.bn254_g1, dev)
+    pts, a, b = addk_exp.experiment_points(dc, 1024)
+    ha, hb = addk_exp.hard_cases(dc, pts)
+    rows_a = tuple(torch.cat(c) for c in zip(a, ha))
+    rows_b = tuple(torch.cat(c) for c in zip(b, hb))
+    A = tuple(x.T.contiguous() for x in rows_a)
+    B = tuple(x.T.contiguous() for x in rows_b)
+    _equal_once(K.B8[variant], lambda: addk_exp.add_2d(dc, variant, *A, *B),
+                lambda: addk_exp.add_2d_plain(dc, variant, *A, *B))
+    if variant != "addonly":
+        got = addk_exp.add_2d(dc, variant, *A, *B)
+        for g, w in zip(got, dc.add(rows_a, rows_b)):
+            assert torch.equal(g, w.T)
+
+
+def test_addk_refuses_other_curves_and_device_mixes(dev):
+    bls = get_device_curve(C.bls381_g1, dev)
+    P = tuple(x.T.contiguous() for x in bls.identity((4,)))
+    with pytest.raises(ValueError):
+        addk_exp.add_2d(bls, "v2d", *P, *P)
+    dc = get_device_curve(C.bn254_g1, dev)
+    Q = tuple(x.T.contiguous() for x in dc.identity((4,)))
+    with pytest.raises(ValueError):
+        addk_exp.add_2d(dc, "v2d", *Q[:2], Q[2].cpu(), *Q)
+
+
+def test_addk_entry_point(dev, capsys):
+    assert addk_exp.main(["1024", *addk_exp.KERNELS], device=dev) == 0
+    assert len(capsys.readouterr().out.splitlines()) == 4
