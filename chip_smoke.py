@@ -10,7 +10,15 @@ Phases, one line of output each (any failure raises and exits non-zero):
      L = 32 (one process per library, all started together).
   2. B1 (G1 point add) on 2^16 random BN254 G1 points plus edge cases,
      limb-equal to its plain PyTorch version; kernel and plain times.
-  3. B7 (G2 point add) on 2^14 random BN254 G2 points, the same checks.
+  3. B7 (G2 point add) at L = 22 (BN254) and L = 32 (BLS12-377, whose
+     Fp2 has u^2 = -5, and BLS12-381) on random G2 points plus edge cases
+     and points rescaled near p - 1, at n = 1 (the G2 Horner's launches),
+     2^14, 45,056 and 90,112 (the b2 MSM's accumulate and reduce launches),
+     limb-equal to its plain version; kernel (events and profiler device
+     time), plain and bound times at each n.
+  3b. A 4,096-point BLS12-377 G2 MSM through `msm` (the fused route on B7
+     at L = 32) against a host oracle, with B7-L32's launches: the path
+     the L = 32 build of B7 serves.
   4a. The fused-pipeline BN254 G1 MSM (`_msm_fused`, the G2 path) at
      n = 2^17, equal to a host oracle (64 distinct points tiled, so
      per-point scalar sums give the answer).
@@ -19,14 +27,17 @@ Phases, one line of output each (any failure raises and exits non-zero):
      then an edge-case MSM through `msm` (scalars 0, 1 and r-1, a run of
      equal scalars, digits that carry across windows, an infinity base).
   4c. B2-B5 each against their plain version, limb for limb, on the
-     inputs recorded in 4b; kernel and plain times, and each kernel's
-     bound.
+     inputs recorded in 4b (B4, K = 256 and M = 44: against the plain
+     version of its split order, and as points against the reference's
+     order); kernel and plain times, and each kernel's bound.
   5. The ballot-proof circuit (c1, 99,946 constraints) end to end: host
      circuit build, Groth16 setup on the card, one prove with fixed
      randomness that must verify (pairing check), one more timed prove;
      the stage times and the kernel launch counts of the prove, the main
      path (every G1 MSM on the scan path, the G2 MSM fused, every field
-     product on B6); each L = 22 kernel must be launched.
+     product on B6); each L = 22 kernel must be launched.  Beside them the
+     prove's B7 launches by batch size, and the times of its four G1 MSMs
+     and its G2 MSM.
   6. B6 (Montgomery product) on 2^16 random elements plus 0, 1, p - 1 and
      raw values up to R - 1 through to_mont, for every field it is built
      for (L = 22 and L = 32), limb-equal to its plain version; kernel and
@@ -36,7 +47,7 @@ Phases, one line of output each (any failure raises and exits non-zero):
      of a synthetic 60-vote batch (2,193 cells), whose commitment and
      proof `verify_kzg_proof` (host pairing) must accept, and reject with
      y + 1; the launch counts of that run, the second path (each L = 32
-     kernel must be launched).  Then a sparse blob's commitment and a
+     G1 kernel must be launched).  Then a sparse blob's commitment and a
      4,096-point MSM of 64 tiled points against host oracles, recording
      the inputs of B1-B5, and B1-B5 at L = 32 against their plain versions
      on them, as in 4c.
@@ -52,9 +63,16 @@ Phases, one line of output each (any failure raises and exits non-zero):
      B1's chain beside them.
 
 The line before the last is a JSON object with one entry per kernel (B8:
-per variant) and limb count; the last line is {"ok": true, "device":
-{...}}.  Without a CUDA device, or without the package beside this file,
-the script exits non-zero and prints no result.
+per variant) and limb count, with its registers and spills from ptxas;
+the last line is {"ok": true, "device": {...}}.  Without a CUDA device,
+or without the package beside this file, the script exits non-zero and
+prints no result.
+
+    python3 chip_smoke.py --g2-add
+
+runs phase 3 alone (after building csrc/point_add.cu), for the curves
+whose limb count has a build of B7: the way to time another checkout's
+B7 at the same shapes.
 
 A kernel's bound is the least time the card could take for its work: the
 larger of its bytes (each input read once, each output written once) over
@@ -91,6 +109,10 @@ FIELD_MULS = {"mul": 1, "add": 14, "mixed": 13, "add_g2": 14 * 3}
 B6_FIELDS = ("bn254_fr", "bn254_fp", "bls12_377_fr", "bls12_381_fr",
              "bls12_377_fp", "bls12_381_fp")
 ADDK_SIZES = (22 * 2048, 1 << 20)  # the experiment's n, and a full card
+G2_CURVES = ("bn254_g2", "bls377_g2", "bls381_g2")
+# one add (the G2 Horner), the table's 2^14, and the b2 MSM's accumulate
+# (Wt x COLS) and reduce launches
+G2_SIZES = (1, 1 << 14, 22 * 2048, 44 * 2048)
 
 
 def say(*parts):
@@ -200,6 +222,13 @@ def ptxas_usage(log_path):
             name = None
 
 
+def kernel_function(record):
+    """The CUDA kernel function of a kernel record ("point_add_g1" ->
+    "point_add_kernel", "point_add_g2" -> "point_add_g2_kernel")."""
+    base = record.builds[min(record.builds)].name
+    return re.sub(r"_g1$", "", base) + "_kernel"
+
+
 class StageTimes(logging.Handler):
     """Collects the `took_s` of the package's timed log events."""
 
@@ -279,8 +308,139 @@ def point_add_phase(kernel, spec, dc, k, rng):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def near_p(dc, pts):
+    """G2 `pts` rescaled projectively by lambda in Fp so that the c0 limbs
+    of Z, X or Y are p - 1 in Montgomery form (lambda = -R^-1, -R^-1 / x0,
+    -R^-1 / y0)."""
+    p = dc.spec.field_spec.p
+    Rinv = pow(1 << (12 * dc.df.L), -1, p)
+
+    def rescaled(scale):
+        lams = [-Rinv * scale(pt) % p for pt in pts]
+        coords = ([pt.x.v for pt in pts], [pt.y.v for pt in pts],
+                  [(1, 0)] * len(pts))
+        return tuple(dc.ops.encode([(lam * a % p, lam * b % p)
+                                    for lam, (a, b) in zip(lams, coord)])
+                     for coord in coords)
+
+    return (rescaled(lambda pt: 1), rescaled(lambda pt: pow(pt.x.v[0], -1, p)),
+            rescaled(lambda pt: pow(pt.y.v[0], -1, p)))
+
+
+def g2_hard_cases(dc, hosts):
+    """(P, Q) pairs of the host points: O + B, B + O, B + B, B + (-B),
+    O + O, then sums of rescaled points near p - 1, two representations of
+    one point, and P + (-P) among them."""
+    import torch
+
+    base = dc.encode_points(hosts)
+    el, er = edge_cases(dc, base)
+    nz, nx, ny = near_p(dc, hosts)
+    roll = lambda pt: tuple(torch.roll(c, 7, 0) for c in pt)
+    lhs = (el, nz, nx, ny, nz, nx)
+    rhs = (er, roll(nx), roll(ny), roll(nz), nx, dc.neg(ny))
+    cat = lambda pts: tuple(torch.cat([pt[c] for pt in pts]) for c in range(3))
+    return cat(lhs), cat(rhs)
+
+
+def g2_add_phase(dev, names=G2_CURVES, sizes=G2_SIZES, k=64):
+    """B7 against its plain version for each G2 curve of `names` at each n
+    of `sizes`: sums of two of k random host points (random Z) and, at
+    every n, the edge and near-p cases; a few results and every edge case
+    of the first n against host arithmetic.  Returns {curve: {n: result}}."""
+    import torch
+
+    from davinci_tpu_torch import curves as C
+    from davinci_tpu_torch import kernels as K
+    from davinci_tpu_torch.ec import cuda_add, get_device_curve
+
+    rng = random.Random(SEED + 3)
+    out = {}
+    for name in names:
+        spec = getattr(C, name)
+        dc = get_device_curve(spec, dev)
+        kernel = K.B7.at(dc.df.L)
+        hosts = [spec.gen.mul(rng.randrange(1, spec.r)) for _ in range(k)]
+        base = dc.encode_points(hosts)
+        hard_p, hard_q = g2_hard_cases(dc, hosts)
+        out[name] = {}
+        for n in sizes:
+            i = torch.arange(n, device=dev)
+            Pn = cuda_add.rcb15_plain(dc, tuple(a[i % k] for a in base),
+                                      tuple(a[(i // k) % k] for a in base))
+            Qn = tuple(torch.roll(a, 3, 0) for a in Pn)
+            P = tuple(torch.cat(c) for c in zip(Pn, hard_p))
+            Q = tuple(torch.cat(c) for c in zip(Qn, hard_q))
+            got = dc.add(P, Q)  # on a CUDA tensor: the kernel
+            err = max_err(got, cuda_add.rcb15_plain(dc, P, Q))
+            torch.cuda.synchronize()
+            check(err == 0, f"{kernel.name} differs from its plain version "
+                            f"on {name} at n={n}")
+            if n == sizes[0]:
+                idx = list(range(n)) + list(range(n, P[0].shape[0]))
+                sel = lambda t: tuple(a[idx] for a in t)
+                host = [a.add(b) for a, b in zip(dc.decode_points(sel(P)),
+                                                  dc.decode_points(sel(Q)))]
+                check(dc.decode_points(sel(got)) == host,
+                      f"{kernel.name} vs host add on {name}")
+            ms = cuda_ms(lambda: dc.add(Pn, Qn), 20)
+            dev_ms = device_ms(lambda: dc.add(Pn, Qn), 20, "point_add")
+            plain_ms = cuda_ms(lambda: cuda_add.rcb15_plain(dc, Pn, Qn), 3)
+            bound_ms, bound_by = bound(9 * n * 2 * dc.df.L * 4, n, "add_g2",
+                                       dc.df.L)
+            out[name][n] = {
+                "kernel": kernel.name, "n": n,
+                "checked": P[0].shape[0], "max_abs_err": err, "ms": ms,
+                "device_ms": dev_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+            say(f"[3] {name} {out[name][n]}")
+    return out
+
+
+def g2_msm_phase(dev, rng_np):
+    """A 4,096-point BLS12-377 G2 MSM through `msm` (the fused route, B7
+    at L = 32) against the host oracle; B7-L32's launches in it."""
+    from davinci_tpu_torch import curves as C
+    from davinci_tpu_torch import kernels as K
+    from davinci_tpu_torch.msm import msm
+
+    case = tiled_msm_case(dev, rng_np, n=4096, spec=C.bls377_g2)
+    K.B7_L32.launches = 0
+    res = msm_phase(msm, case)
+    res["launches"] = K.B7_L32.launches
+    check(res["launches"] > 0, "the G2 MSM did not launch B7 at L = 32")
+    return res
+
+
+class G2Batches:
+    """While installed, counts the G2 point adds by the batch size they
+    are launched at."""
+
+    def __enter__(self):
+        from davinci_tpu_torch.ec import cuda_add
+
+        self.sizes = {}
+        self.saved = cuda_add.point_add_fp2
+
+        def rec(curve, p, q):
+            import torch
+
+            shape = torch.broadcast_shapes(p[0].shape, q[0].shape)[:-2]
+            n = int(torch.Size(shape).numel())
+            self.sizes[n] = self.sizes.get(n, 0) + 1
+            return self.saved(curve, p, q)
+
+        cuda_add.point_add_fp2 = rec
+        return self
+
+    def __exit__(self, *exc):
+        from davinci_tpu_torch.ec import cuda_add
+
+        cuda_add.point_add_fp2 = self.saved
+
+
 def tiled_msm_case(dev, rng_np, n=1 << 17, spec=None):
-    """A G1 MSM (default BN254) of n points tiling 64 distinct bases, with
+    """An MSM (default BN254 G1) of n points tiling 64 distinct bases, with
     random 12-bit windows, and its host oracle (per-base scalar sums)."""
     import numpy as np
     import torch
@@ -293,7 +453,7 @@ def tiled_msm_case(dev, rng_np, n=1 << 17, spec=None):
     dc = get_device_curve(spec, dev)
     base_pts = [spec.gen.mul(int(k)) for k in rng_np.integers(1, 2**31, 64)]
     P64 = dc.encode_points(base_pts)
-    pts = tuple(a.repeat(n // 64, 1) for a in P64)
+    pts = tuple(a.repeat((n // 64,) + (1,) * (a.dim() - 1)) for a in P64)
     W = -(-spec.r.bit_length() // WINDOW_BITS)
     S = rng_np.integers(0, NBUCKETS, size=(n, W), dtype=np.int32)
     # the top window of a reduced scalar (2 bits at BN254, 3 at BLS12-381)
@@ -410,6 +570,7 @@ def scan_kernels_phase(args, tag="[4c]"):
     C = bk.REDUCE_C if NB % bk.REDUCE_C == 0 else NB
     _, s = args["suffix_reduce_kernel"]
     Ks, _, M = s.shape
+    T = bk.suffix_chunk(Ks)
     _, sums, W, wbits = args["horner_kernel"]
     B = sums[0].shape[1] // W
     check(wbits == WINDOW_BITS, "Horner's doublings per window")
@@ -424,9 +585,9 @@ def scan_kernels_phase(args, tag="[4c]"):
          (3 * L * Wt * NB + 6 * L * Wt * C) * word,
          Wt * C * (2 * (NB // C) - 1), "add", {"Wt": Wt, "NB": NB, "C": C}),
         (K.B4.at(L), lambda: bk.suffix_reduce_kernel(dc, s),
-         lambda: bk._suffix_reduce_plain(dc, s),
+         lambda: bk._suffix_reduce_split_plain(dc, s, T),
          (Ks + 2) * 3 * L * M * word, M * (2 * Ks - 1), "add",
-         {"K": Ks, "M": M}),
+         {"K": Ks, "M": M, "T": T}),
         (K.B5.at(L), lambda: bk.horner_kernel(dc, sums, W, wbits),
          lambda: bk._horner_plain(dc, sums, W, wbits),
          3 * L * (W + 1) * B * word, B * (W - 1) * (wbits + 1), "add",
@@ -438,6 +599,11 @@ def scan_kernels_phase(args, tag="[4c]"):
         want = plain()
         err = max_err(got, want)
         check(err == 0, f"{kernel.name} differs from its plain version")
+        if kernel.builds[22] is K.B4:  # split order: the reference's points
+            cols = lambda t: tuple(t[c * L:(c + 1) * L].T for c in range(3))
+            for g, w in zip(got, bk._suffix_reduce_plain(dc, s)):
+                check(dc.decode_points(cols(g)) == dc.decode_points(cols(w)),
+                      f"{kernel.name}: other points than the reference order")
         ms = cuda_ms(run, 5)
         plain_ms = cuda_ms(plain, 1, warm=False)
         bound_ms, bound_by = bound(nbytes, adds, kind, L)
@@ -727,9 +893,11 @@ def groth16_phase(dev, cs, public, kernels, stages):
     stages.took.clear()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    proof = g16.prove(pk, cs, r_rand=7, s_rand=11)
+    with G2Batches() as g2:
+        proof = g16.prove(pk, cs, r_rand=7, s_rand=11)
     out["prove_first_s"] = time.perf_counter() - t0
     out["prove_launches"] = {k.name: k.launches for k in kernels}
+    out["prove_g2_adds_by_n"] = dict(sorted(g2.sizes.items()))
     out["stages_first_s"] = dict(stages.took)
     for k in kernels:
         check(k.launches > 0, f"{k.name} was not launched by the prove")
@@ -739,21 +907,78 @@ def groth16_phase(dev, cs, public, kernels, stages):
     check(not g16.verify(vk, proof, [public[0] + 1]),
           "proof verifies against a wrong public input")
     say(f"[5] prove: {out['prove_first_s']:.3f} s, verify true in "
-        f"{out['verify_s']:.3f} s, launches {out['prove_launches']}")
+        f"{out['verify_s']:.3f} s, launches {out['prove_launches']}, "
+        f"G2 adds by batch size {out['prove_g2_adds_by_n']}")
 
     stages.took.clear()
+    msm_s = {"g1": [], "g2": []}
+    real_msm = g16._msm_enc
+
+    def timed_msm(dc, *args):  # each MSM ends in a host decode
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real_msm(dc, *args)
+        msm_s["g2" if dc.ops.coord_ndim == 2 else "g1"].append(
+            time.perf_counter() - t)
+        return res
+
+    g16._msm_enc = timed_msm
     t0 = time.perf_counter()
     proof2 = g16.prove(pk, cs)
     out["prove_s"] = time.perf_counter() - t0
+    del g16._msm_enc
     out["stages_s"] = dict(stages.took)
+    out["msm_g1_s"], out["msm_g2_s"] = msm_s["g1"], msm_s["g2"]
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     check(g16.verify(vk, proof2, public), "second proof does not verify")
     say(f"[5] timed prove: {out['prove_s']:.3f} s, stages {out['stages_s']}, "
+        f"G1 MSMs {out['msm_g1_s']} s, G2 MSM {out['msm_g2_s']} s, "
         f"peak device memory {out['peak_mem_gb']:.2f} GiB")
     return out
 
 
-def main() -> int:
+def device_line():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    say(smi)
+
+
+def build_phase(targets=None):
+    """Build the kernel libraries; ptxas's report of every kernel of
+    them, {"kernel@L": "R registers, S bytes spilled"}."""
+    from davinci_tpu_torch import cuda_build
+
+    t0 = time.perf_counter()
+    times = cuda_build.build_all(targets)
+    build_s = time.perf_counter() - t0
+    regs = {f"{name}@L{limbs}": usage
+            for src, limbs in (targets or cuda_build.all_targets())
+            for name, usage in ptxas_usage(cuda_build.ptxas_log(src, limbs))}
+    say(f"[1] built {times} in {build_s:.3f} s; ptxas: {regs}")
+    return regs
+
+
+def g2_add_only():
+    """Phase 3 alone, for the curves whose limb count has a B7 build."""
+    import torch
+
+    from davinci_tpu_torch import curves as C
+    from davinci_tpu_torch import kernels as K
+    from davinci_tpu_torch.ec import get_device_curve
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    device_line()
+    build_phase([("point_add", limbs) for limbs in sorted(K.B7.builds)])
+    names = [n for n in G2_CURVES
+             if get_device_curve(getattr(C, n), dev).df.L in K.B7.builds]
+    say(json.dumps({"g2_add": g2_add_phase(dev, names)}))
+    return 0
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -764,10 +989,14 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if argv == ["--g2-add"]:
+        return g2_add_only()
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
 
     import numpy as np
 
-    from davinci_tpu_torch import cuda_build
     from davinci_tpu_torch import curves as C
     from davinci_tpu_torch import kernels as K
     from davinci_tpu_torch import log
@@ -776,32 +1005,26 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    say(smi)
-    t0 = time.perf_counter()
-    times = cuda_build.build_all()
-    build_s = time.perf_counter() - t0
-    # ptxas's report of every kernel library (built now or earlier)
-    regs = {f"{name}@L{limbs}": usage
-            for src, limbs in cuda_build.all_targets()
-            for name, usage in ptxas_usage(cuda_build.ptxas_log(src, limbs))}
-    say(f"[1] built {times} in {build_s:.3f} s; ptxas: {regs}")
+    device_line()
+    regs = build_phase()
 
     rng = random.Random(SEED)
     rng_np = np.random.default_rng(SEED)
     b8 = list(K.B8.values())  # the point-add experiment's path
     # c1's path
     kernels = [k for k in K.KERNELS if k.limbs == 22 and k not in b8]
-    kernels32 = [k for k in K.KERNELS if k.limbs == 32]  # the blob path
+    # the blob path: every L = 32 build but G2's, which 3b's MSM drives
+    kernels32 = [k for k in K.KERNELS if k.limbs == 32 and k is not K.B7_L32]
     g1 = get_device_curve(C.bn254_g1, dev)
-    g2 = get_device_curve(C.bn254_g2, dev)
     res = {K.B1.name: point_add_phase(K.B1, C.bn254_g1, g1, 256, rng)}
     say(f"[2] B1 {res[K.B1.name]}")
-    res[K.B7.name] = point_add_phase(K.B7, C.bn254_g2, g2, 128, rng)
-    say(f"[3] B7 {res[K.B7.name]}")
+    g2_add = g2_add_phase(dev)
+    # the kernels line: each build at the b2 MSM's accumulate launches
+    res[K.B7.name] = g2_add["bn254_g2"][G2_SIZES[2]]
+    res[K.B7_L32.name] = g2_add["bls377_g2"][G2_SIZES[2]]
+    g2_msm = g2_msm_phase(dev, rng_np)
+    say(f"[3b] BLS12-377 G2 MSM through msm equal to the host oracle: "
+        f"{g2_msm}")
 
     case = tiled_msm_case(dev, rng_np)
     say(f"[4a] fused G1 MSM equal to the host oracle: "
@@ -832,14 +1055,16 @@ def main() -> int:
     addk_res, addk_launches = addk_phase(dev)
     res.update(addk_res)
 
-    launches = {**c1["prove_launches"], **blob["launches"], **addk_launches}
+    launches = {**c1["prove_launches"], **blob["launches"], **addk_launches,
+                K.B7_L32.name: g2_msm["launches"]}
     say(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "limbs": k.limbs,
          "launches": launches[k.name],
          **{key: res[k.name][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
-         "library_ms": None}
+         "library_ms": None,
+         "ptxas": regs[f"{kernel_function(k)}@L{k.limbs}"]}
         for k in K.KERNELS
     ]}))
     say(json.dumps({"ok": True, "device": {
@@ -849,4 +1074,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

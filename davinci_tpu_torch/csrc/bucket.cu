@@ -11,10 +11,11 @@
 //
 // The TPU kernels carry an accumulator in VMEM across sequential grid
 // steps.  Here one thread owns one lane and walks the sequential axis in a
-// loop, its accumulators in registers.  Every group operation is
-// field.cuh's canonical rcb15 or rcb15_mixed (doublings are rcb15(t, t),
-// as in the reference), so the outputs equal the plain PyTorch versions of
-// msm/bucket_kernel.py limb for limb.  Limb-major arrays are read with
+// loop, its accumulators in registers (B4: one chunk of it, see below).
+// Every group operation is field.cuh's canonical rcb15 or rcb15_mixed
+// (doublings are rcb15(t, t), as in the reference), so the outputs equal
+// the plain PyTorch versions of msm/bucket_kernel.py limb for limb (B4:
+// `_suffix_reduce_split_plain`, which adds in the kernel's order).  Limb-major arrays are read with
 // limb i of lane l at i * stride + l, so neighbouring threads touch
 // neighbouring words.
 //
@@ -29,8 +30,10 @@
 //   (5,632 at c1) in flight.
 //   B4 and B5 are chains of dependent adds on few lanes (B4: 2K - 1 adds on
 //   each of 2 Wt lanes; B5: (W - 1)(wbits + 1) adds on one lane): latency,
-//   not throughput, bounds them, far from any roofline.  Splitting those
-//   chains across threads is later work.
+//   not throughput, bounds them, far from any roofline.  B4 splits its
+//   chain into P chunks of T rows walked by P threads, then combines the
+//   chunk sums (about 2T + 2P + log2 T adds in a row instead of 2K: 67 at
+//   K = 256, T = 16); B5's chain is still one thread's.
 
 #include <cstring>
 
@@ -140,34 +143,126 @@ __global__ void __launch_bounds__(THREADS)
   store(bz + o, BZ, s_out);
 }
 
-// B4.  s: (K, 3L, M) point columns (X limbs, Y limbs, Z limbs); one thread
-// per lane m.  a, b: (3L, M).
+// B4.  s: (K, 3L, M) point columns (X limbs, Y limbs, Z limbs); a, b:
+// (3L, M).  The walk over k is split into P = ceil(K / T) chunks of T rows
+// (T a power of two; rows past K are the identity).  A block holds G
+// lanes and all P chunks of each (blockDim P G): thread (c, g) walks chunk
+// c of lane m = G blockIdx + g,
+//   A_c = sum_j s_{cT+j},  B_c = sum_j j s_{cT+j}  (2T - 1 adds),
+// and leaves both in shared memory (sh: [6][N][P G] words, A_c's X Y Z then
+// B_c's).  Then, per lane, thread c = 0 walks the chunk sums the same way
+// (A = sum_c A_c, W = sum_c c A_c) and doubles W log2 T times, while
+// thread c = 1 (c = 0 where P = 1) adds the B_c up from the identity;
+// after a second barrier, B = T W + sum_c B_c.  Each value passes through
+// shared memory rather than registers, so no thread holds more than one
+// walk's points.  Every add is rcb15 in that order, the order of
+// bucket_kernel._suffix_reduce_split_plain.
+__device__ __forceinline__ void put_words(uint32_t* sh, int q, int stride,
+                                          const F& a) {
+#pragma unroll
+  for (int k = 0; k < N; k++) sh[(q * N + k) * stride] = a.w[k];
+}
+
+__device__ __forceinline__ void get_words(F& a, const uint32_t* sh, int q,
+                                          int stride) {
+#pragma unroll
+  for (int k = 0; k < N; k++) a.w[k] = sh[(q * N + k) * stride];
+}
+
 __global__ void __launch_bounds__(THREADS)
     suffix_reduce_kernel(const int32_t* __restrict__ s,
                          int32_t* __restrict__ a, int32_t* __restrict__ b,
-                         const Cst c, long long K, long long M) {
-  const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
+                         const Cst c, long long K, long long M, int T,
+                         int P, int G) {
+  extern __shared__ uint32_t sh[];
+  const int nt = P * G;
+  const int chunk = threadIdx.x / G, g = threadIdx.x % G;
+  const long long m = (long long)blockIdx.x * G + g;
+  const bool lane = m < M;
   const long long plane = (long long)L * M;
+  uint32_t* const own = sh + threadIdx.x;  // this thread's chunk slots
   F b3, RX, RY, RZ, BX, BY, BZ;
   set_b3(b3, c);
-  set_identity(RX, RY, RZ, c);
-  set_identity(BX, BY, BZ, c);
-  for (long long k = K - 1; k >= 0; k--) {
-    const int32_t* sk = s + k * 3 * plane + m;
-    F SX, SY, SZ;
-    load(SX, sk, M);
-    load(SY, sk + plane, M);
-    load(SZ, sk + 2 * plane, M);
-    rcb15(RX, RY, RZ, RX, RY, RZ, SX, SY, SZ, b3, c);
-    if (k) rcb15(BX, BY, BZ, BX, BY, BZ, RX, RY, RZ, b3, c);
+  if (lane) {
+    set_identity(RX, RY, RZ, c);
+    set_identity(BX, BY, BZ, c);
+    for (int j = T - 1; j >= 0; j--) {
+      const long long k = (long long)chunk * T + j;
+      F SX, SY, SZ;
+      if (k < K) {
+        const int32_t* sk = s + k * 3 * plane + m;
+        load(SX, sk, M);
+        load(SY, sk + plane, M);
+        load(SZ, sk + 2 * plane, M);
+      } else {
+        set_identity(SX, SY, SZ, c);
+      }
+      rcb15(RX, RY, RZ, RX, RY, RZ, SX, SY, SZ, b3, c);
+      if (j) rcb15(BX, BY, BZ, BX, BY, BZ, RX, RY, RZ, b3, c);
+    }
+    put_words(own, 0, nt, RX);
+    put_words(own, 1, nt, RY);
+    put_words(own, 2, nt, RZ);
+    put_words(own, 3, nt, BX);
+    put_words(own, 4, nt, BY);
+    put_words(own, 5, nt, BZ);
   }
-  store(a + m, RX, M);
-  store(a + plane + m, RY, M);
-  store(a + 2 * plane + m, RZ, M);
-  store(b + m, BX, M);
-  store(b + plane + m, BY, M);
-  store(b + 2 * plane + m, BZ, M);
+  __syncthreads();
+  // thread c = 0: (A, W) by the suffix walk over the A_c; A goes out, T W
+  // to its own A slot (it alone reads the A slots)
+  if (lane && chunk == 0) {
+    set_identity(RX, RY, RZ, c);
+    set_identity(BX, BY, BZ, c);
+    for (int q = P - 1; q >= 0; q--) {
+      F SX, SY, SZ;
+      const uint32_t* at = sh + q * G + g;
+      get_words(SX, at, 0, nt);
+      get_words(SY, at, 1, nt);
+      get_words(SZ, at, 2, nt);
+      rcb15(RX, RY, RZ, RX, RY, RZ, SX, SY, SZ, b3, c);
+      if (q) rcb15(BX, BY, BZ, BX, BY, BZ, RX, RY, RZ, b3, c);
+    }
+    store(a + m, RX, M);
+    store(a + plane + m, RY, M);
+    store(a + 2 * plane + m, RZ, M);
+    for (int d = 1; d < T; d <<= 1)
+      rcb15(BX, BY, BZ, BX, BY, BZ, BX, BY, BZ, b3, c);
+    put_words(own, 0, nt, BX);
+    put_words(own, 1, nt, BY);
+    put_words(own, 2, nt, BZ);
+  }
+  // thread c = sum_c: sum_c B_c, to its own B slot (it alone reads the B
+  // slots)
+  const int sum_c = P > 1 ? 1 : 0;
+  if (lane && chunk == sum_c) {
+    set_identity(RX, RY, RZ, c);
+    for (int q = P - 1; q >= 0; q--) {
+      F SX, SY, SZ;
+      const uint32_t* at = sh + q * G + g;
+      get_words(SX, at, 3, nt);
+      get_words(SY, at, 4, nt);
+      get_words(SZ, at, 5, nt);
+      rcb15(RX, RY, RZ, RX, RY, RZ, SX, SY, SZ, b3, c);
+    }
+    put_words(own, 3, nt, RX);
+    put_words(own, 4, nt, RY);
+    put_words(own, 5, nt, RZ);
+  }
+  __syncthreads();
+  // B = T W + sum_c B_c
+  if (lane && chunk == 0) {
+    const uint32_t* at = sh + sum_c * G + g;
+    get_words(BX, own, 0, nt);
+    get_words(BY, own, 1, nt);
+    get_words(BZ, own, 2, nt);
+    get_words(RX, at, 3, nt);
+    get_words(RY, at, 4, nt);
+    get_words(RZ, at, 5, nt);
+    rcb15(BX, BY, BZ, BX, BY, BZ, RX, RY, RZ, b3, c);
+    store(b + m, BX, M);
+    store(b + plane + m, BY, M);
+    store(b + 2 * plane + m, BZ, M);
+  }
 }
 
 // B5.  s*: (L, W * B) window-major sums (window w, batch b at column
@@ -244,11 +339,17 @@ extern "C" int davinci_bucket_reduce_g1(
 
 extern "C" int davinci_suffix_reduce_g1(const int32_t* s, int32_t* a,
                                         int32_t* b, const uint32_t* consts,
-                                        long long K, long long M,
+                                        long long K, long long M, long long T,
                                         void* stream) {
   if (M <= 0) return 0;
-  suffix_reduce_kernel<<<blocks_for(M), THREADS, 0, (cudaStream_t)stream>>>(
-      s, a, b, consts_of(consts), K, M);
+  const long long P = (K + T - 1) / T;
+  if (K <= 0 || T <= 0 || (T & (T - 1)) || P > THREADS)
+    return (int)cudaErrorInvalidValue;
+  const long long G = THREADS / P;  // lanes per block
+  const size_t shared = sizeof(uint32_t) * 6 * N * P * G;
+  suffix_reduce_kernel<<<(unsigned)((M + G - 1) / G), (unsigned)(P * G),
+                         shared, (cudaStream_t)stream>>>(
+      s, a, b, consts_of(consts), K, M, (int)T, (int)P, (int)G);
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,8 @@ version.  Counterpart of `davinci_tpu/ec/pallas_add.py`.
 `point_add` / `point_add_fp2` take (X, Y, Z) tuples of Montgomery limb
 tensors, (..., L) or (..., 2, L), broadcast against each other.  On a CPU
 tensor they run `rcb15_plain`; on a CUDA tensor they launch the kernel of
-`csrc/point_add.cu` built for the field's limb count (G1: L = 22 or
-32; G2: L = 22) or raise.  Outputs are canonical limbs either way, so
+`csrc/point_add.cu` built for the field's limb count (L = 22 or 32) or
+raise.  Outputs are canonical limbs either way, so
 kernel and plain version agree limb for limb.  `rcb15_mixed_plain` is
 the plain version of the mixed addition (Algorithm 8) that the bucket-scan
 kernel B2 runs (`csrc/field.cuh`).
@@ -95,8 +95,8 @@ def _int_of(limbs: torch.Tensor) -> int:
 
 def _consts(curve):
     """The kernels' Consts struct (csrc/field.cuh) as a ctypes array,
-    cached per curve.  Raises for a curve no kernel build serves: the
-    builds are L = 22 and L = 32 for G1 (B1-B5), L = 22 for G2 (B7)."""
+    cached per curve.  Raises for a curve no kernel build serves: every
+    kernel is built at L = 22 and L = 32, for moduli below 2^(32N - 1)."""
     cached = getattr(curve, "_cuda_add_consts", None)
     if cached is not None:
         return cached

@@ -1,2 +1,3 @@
 from davinci_tpu_torch.groth16.r1cs import ConstraintSystem, LinComb
-from davinci_tpu_torch.groth16.core import Groth16, ProvingKey, VerifyingKey, Proof
+from davinci_tpu_torch.groth16.core import (Groth16, Proof, ProveError,
+                                            ProvingKey, VerifyingKey)

@@ -143,14 +143,23 @@ def _fixed_base_mul(dc, tx, ty, tz, S):
     return tuple(p[0] for p in parts)
 
 
+class ProveError(ValueError, AssertionError):
+    """A prove refused: an unsatisfied witness, a quotient that overflows
+    its degree, or bases and scalars of different counts.  The reference
+    asserts there; callers that catch either type catch this."""
+
+
 class Groth16:
     """Groth16 over one pairing curve on one device."""
 
-    def __init__(self, curve_name: str, device="cuda"):
+    def __init__(self, curve_name: str, ctx=None, fr=None, device="cuda"):
+        """Either a registered curve name, or an explicit (ctx, fr) pair
+        (synthetic curve families reuse the whole backend), as in the
+        reference."""
         self.curve_name = curve_name
         self.device = torch.device(device)
-        self.ctx = PAIRINGS[curve_name]
-        self.fr = {
+        self.ctx = ctx or PAIRINGS[curve_name]
+        self.fr = fr or {
             "bn254": F.bn254_fr,
             "bls12_377": F.bls12_377_fr,
             "bls12_381": F.bls12_381_fr,
@@ -356,7 +365,7 @@ class Groth16:
             )
             abc = matvec_device(df, dcsr, unpack_limbs(Zp, W), N)
             if not bool(satisfied_device(df, *abc, n_cons)):
-                raise ValueError("witness does not satisfy constraints")
+                raise ProveError("witness does not satisfy constraints")
 
         # --- quotient polynomial h ------------------------------------------
         with log.info_time("groth16.quotient_ntt", domain=N):
@@ -373,7 +382,7 @@ class Groth16:
             h_raw = df.from_mont(h_coeffs)
             del h_coeffs
             if bool((h_raw[N - 1] != 0).any()):
-                raise ValueError("quotient degree overflow")
+                raise ProveError("quotient degree overflow")
 
         # --- MSMs -----------------------------------------------------------
         with log.info_time("groth16.msms", n_vars=len(z)):
@@ -441,7 +450,7 @@ class Groth16:
             S_full = torch.as_tensor(scalars_to_limbs(gspec, scalars),
                                      device=dc.device)
         if n != S_full.shape[0]:
-            raise ValueError(f"{n} bases but {S_full.shape[0]} scalars")
+            raise ProveError(f"{n} bases but {S_full.shape[0]} scalars")
         if n == 0 or not bool(S_full.any()):
             return gspec.infinity()
         seg = self.MSM_SEGMENT_G2 if dc.ops.coord_ndim == 2 else self.MSM_SEGMENT

@@ -141,20 +141,21 @@ B2 = Kernel("bucket_scan_g1", "davinci_bucket_scan_g1", _BUCKET,
 B3 = Kernel("bucket_reduce_g1", "davinci_bucket_reduce_g1", _BUCKET,
             f"{_REF}:585", 9, 3)
 B4 = Kernel("suffix_reduce_g1", "davinci_suffix_reduce_g1", _BUCKET,
-            f"{_REF}:365", 3, 2)
+            f"{_REF}:365", 3, 3)
 B5 = Kernel("horner_g1", "davinci_horner_g1", _BUCKET,
             f"{_REF}:476", 6, 3)
 B6 = Kernel("mont_mul", "davinci_mont_mul", _MONT_MUL,
             "davinci_tpu/ff/pallas_mul.py:31", 3, 3)
 B7 = Kernel("point_add_g2", "davinci_point_add_g2", _POINT_ADD,
             "davinci_tpu/ec/pallas_add.py:260", 9, 1)
-# the L = 32 builds (BLS12-381/377 G1 and base fields); B7 has none
-B1_L32, B2_L32, B3_L32, B4_L32, B5_L32, B6_L32 = (
-    k.build_for(32) for k in (B1, B2, B3, B4, B5, B6))
+# the L = 32 builds (BLS12-381/377 G1, G2 and base fields)
+B1_L32, B2_L32, B3_L32, B4_L32, B5_L32, B6_L32, B7_L32 = (
+    k.build_for(32) for k in (B1, B2, B3, B4, B5, B6, B7))
 # B8: the point-add experiment's four G1 add designs, BN254 at L = 22 only
 # (ec/addk_exp.py); the field's constants are compiled in (consts NULL)
 B8 = {v: Kernel(f"addk_{v}", f"davinci_addk_{v}", _ADDK,
                 "scripts/addk_exp.py:354", 9, 1)
       for v in ("v2d", "lazy", "kara", "addonly")}
 KERNELS = (B1, B2, B3, B4, B5, B6, B7,
-           B1_L32, B2_L32, B3_L32, B4_L32, B5_L32, B6_L32, *B8.values())
+           B1_L32, B2_L32, B3_L32, B4_L32, B5_L32, B6_L32, B7_L32,
+           *B8.values())

@@ -12,14 +12,15 @@ version beside its wrapper:
   * B3 `bucket_reduce_kernel`: per-lane reduce partials A_c = sum_k S_kC+c
     and B_c = sum_k k S_kC+c of (L, Wt, NB) bucket arrays.
   * B4 `suffix_reduce_kernel`: A = sum_k s_k, B = sum_k k s_k over the
-    leading axis of (K, 3L, M).
+    leading axis of (K, 3L, M), split into chunks walked in parallel.
   * B5 `horner_kernel`: sum_w 2^(wbits w) S_w, MSB first.
 
 The TPU carries each accumulator across sequential grid steps in VMEM;
 here one CUDA thread owns a lane and walks the sequential axis in a loop.
 A wrapper runs the plain version on CPU tensors only; on CUDA tensors it
 launches its kernel or raises.  Both give canonical limbs, so they agree
-limb for limb.
+limb for limb (B4's kernel with `_suffix_reduce_split_plain`, its CPU
+route the reference's order).
 
 The inputs are affine (z in {0, one}) and their 12-bit Montgomery limbs
 are repacked into dense base-2^16 planes, x in the low and y in the high
@@ -264,10 +265,28 @@ def _bucket_reduce_plain(curve, buckets, C: int):
 
 # -- B4: the suffix reduce ----------------------------------------------------
 
+SUFFIX_MAX_CHUNKS = 128  # B4's chunks per lane: one block holds them all
+
+
+def suffix_chunk(K: int) -> int:
+    """Rows per chunk of B4's split walk: the least power of two at or
+    above sqrt(K), raised until at most SUFFIX_MAX_CHUNKS chunks remain
+    (K = 256: 16 chunks of 16)."""
+    T = 1 << ((K - 1).bit_length() + 1) // 2
+    while -(-K // T) > SUFFIX_MAX_CHUNKS:
+        T <<= 1
+    return T
+
 
 def suffix_reduce_kernel(curve, s):
     """s: (K, 3L, M) int32 point columns (X limbs, then Y, then Z).
-    Returns (A, B), each (3L, M): A = sum_k s_k, B = sum_k k s_k."""
+    Returns (A, B), each (3L, M): A = sum_k s_k, B = sum_k k s_k.
+
+    On CUDA, B4 walks chunks of T = suffix_chunk(K) rows on parallel
+    threads and combines their sums: the order of
+    `_suffix_reduce_split_plain`.  On CPU, `_suffix_reduce_plain`: the
+    reference's one walk.  The two give the same points in different
+    projective representatives."""
     device = check_tensors(B4, (s,))
     K, L3, M = s.shape
     _require(B4, L3 == 3 * curve.df.L and K > 0, f"s shaped {tuple(s.shape)}")
@@ -277,8 +296,13 @@ def suffix_reduce_kernel(curve, s):
     A = torch.empty((L3, M), dtype=torch.int32, device=device)
     B = torch.empty_like(A)
     if M:
-        kernel.launch(device, (s, A, B), consts, (K, M))
+        kernel.launch(device, (s, A, B), consts, (K, M, suffix_chunk(K)))
     return A, B
+
+
+def _columns(p):
+    """(X, Y, Z), each (..., M, L) -> (..., 3L, M) point columns."""
+    return torch.cat([a.transpose(-1, -2) for a in p], dim=-2).contiguous()
 
 
 def _suffix_reduce_plain(curve, s):
@@ -290,8 +314,36 @@ def _suffix_reduce_plain(curve, s):
         run = rcb15_plain(curve, run, tuple(S[:, k]))
         if k:
             bacc = rcb15_plain(curve, bacc, run)
-    back = lambda p: torch.cat([a.T for a in p], dim=0).contiguous()
-    return back(run), back(bacc)
+    return _columns(run), _columns(bacc)
+
+
+def _suffix_reduce_split_plain(curve, s, T: int):
+    """B4's order: the rows in P = ceil(K / T) chunks of T (the last
+    padded with the identity); per chunk c the suffix walk gives A_c =
+    sum_j s_{cT+j} and B_c = sum_j j s_{cT+j}; the same walk over the A_c
+    gives A and W = sum_c c A_c; W is doubled log2 T times; S = sum_c B_c
+    from the identity, c descending; B = W + S."""
+    K, L3, M = s.shape
+    L = L3 // 3
+    P = -(-K // T)
+    if P * T != K:
+        pad = _columns(curve.identity((M,)))
+        s = torch.cat([s, pad.expand(P * T - K, L3, M)])
+    S = s.reshape(P, T, 3, L, M).permute(2, 1, 0, 4, 3)  # (3, T, P, M, L)
+    run = bacc = curve.identity((P, M))
+    for j in reversed(range(T)):
+        run = rcb15_plain(curve, run, tuple(S[:, j]))
+        if j:
+            bacc = rcb15_plain(curve, bacc, run)
+    A = W = total = curve.identity((M,))
+    for c in reversed(range(P)):
+        A = rcb15_plain(curve, A, tuple(a[c] for a in run))
+        if c:
+            W = rcb15_plain(curve, W, A)
+        total = rcb15_plain(curve, total, tuple(b[c] for b in bacc))
+    for _ in range(T.bit_length() - 1):
+        W = rcb15_plain(curve, W, W)
+    return _columns(A), _columns(rcb15_plain(curve, W, total))
 
 
 # -- B5: Horner ---------------------------------------------------------------

@@ -4,9 +4,10 @@ The hand-written kernels B1 (G1 point add), B7 (G2 point add), the scan
 path's B2-B5 (bucket scan, bucket reduce, suffix reduce, Horner) and B6
 (Montgomery product) are held limb for limb against their plain PyTorch
 versions on the same CUDA tensors, each launch counted once, at L = 22
-and, for B1, B2 and B6, at L = 32 (BLS12-381); and the MSMs that run on
-them (the scan path for G1, the fused pipeline for G2) against a host
-sum.  B8, the point-add experiment's four designs of the BN254 G1 add
+and, for B1, B2, B4, B6 and B7, at L = 32 (BLS12-381, and BLS12-377's
+G2, whose Fp2 has u^2 = -5); B4 against the plain version of its split
+order.  The MSMs that run on them (the scan path for G1, the fused
+pipeline for G2) are held against a host sum.  B8, the point-add experiment's four designs of the BN254 G1 add
 (ec/addk_exp.py), is held against its plain versions and, for the three
 that compute the canonical add, against B1.
 This file imports nothing of the JAX package; on a machine without JAX
@@ -53,7 +54,8 @@ def _operands(dc, spec, n, seed):
     return cat(lhs), cat(rhs)
 
 
-@pytest.mark.parametrize("name", ["bn254_g1", "bn254_g2", "bls381_g1"])
+@pytest.mark.parametrize(
+    "name", ["bn254_g1", "bn254_g2", "bls381_g1", "bls377_g2", "bls381_g2"])
 def test_kernel_matches_plain(dev, name):
     spec = getattr(C, name)
     dc = get_device_curve(spec, dev)
@@ -70,6 +72,11 @@ def test_kernel_matches_plain(dev, name):
     one = tuple(a[:1] for a in A)
     for g, w in zip(dc.add(one, B), cuda_add.rcb15_plain(dc, one, B)):
         assert torch.equal(g, w)
+    # batches that end inside a warp's five G2 adds or a block's ten
+    for n in (1, 4, 7, 11):
+        a, b = tuple(x[:n] for x in A), tuple(x[-n:] for x in B)
+        for g, w in zip(dc.add(a, b), cuda_add.rcb15_plain(dc, a, b)):
+            assert torch.equal(g, w)
 
 
 def test_kernel_rejects_wrong_dtype(dev):
@@ -79,7 +86,8 @@ def test_kernel_rejects_wrong_dtype(dev):
         dc.add(P, P)
 
 
-@pytest.mark.parametrize("name", ["bn254_g1", "bn254_g2", "bls381_g1"])
+@pytest.mark.parametrize("name",
+                         ["bn254_g1", "bn254_g2", "bls381_g1", "bls377_g2"])
 def test_msm_on_the_card_matches_host(dev, name):
     spec = getattr(C, name)
     dc = get_device_curve(spec, dev)
@@ -153,15 +161,30 @@ def test_bucket_reduce_matches_plain(dev):
                 lambda: bk._bucket_reduce_plain(dc, buckets, bk.REDUCE_C))
 
 
-def test_suffix_reduce_matches_plain(dev):
-    dc = get_device_curve(C.bn254_g1, dev)
-    Kr, M = 7, 200
-    P = _projective(dc, 64, 7)
+@pytest.mark.parametrize("Kr", [1, 4, 5, 7, 32, 256])
+@pytest.mark.parametrize("name", ["bn254_g1", "bls381_g1"])
+def test_suffix_reduce_matches_plain(dev, name, Kr):
+    """B4 adds in chunks (`suffix_chunk`): limb-equal to the split plain
+    version, and the same points as the reference's walk."""
+    spec = getattr(C, name)
+    dc = get_device_curve(spec, dev)
+    L, M = dc.df.L, 200
+    r = random.Random(7)
+    pts = dc.encode_points([spec.gen.mul(r.randrange(1, spec.r))
+                            for _ in range(128)])
+    P = cuda_add.rcb15_plain(dc, tuple(a[:64] for a in pts),
+                             tuple(a[64:] for a in pts))
     idx = torch.randint(0, 64, (Kr * M,), generator=_gen(8)).to(dev)
-    s = torch.cat([a[idx].reshape(Kr, M, 22).transpose(1, 2) for a in P],
+    s = torch.cat([a[idx].reshape(Kr, M, L).transpose(1, 2) for a in P],
                   dim=1).contiguous()
-    _equal_once(K.B4, lambda: bk.suffix_reduce_kernel(dc, s),
-                lambda: bk._suffix_reduce_plain(dc, s))
+    s[:, :, 3] = bk._columns(dc.identity((1,)))[:, 0]  # an identity lane
+    T = bk.suffix_chunk(Kr)
+    _equal_once(K.B4.at(L), lambda: bk.suffix_reduce_kernel(dc, s),
+                lambda: bk._suffix_reduce_split_plain(dc, s, T))
+    split = lambda t: tuple(t[c * L:(c + 1) * L].T for c in range(3))
+    for got, want in zip(bk.suffix_reduce_kernel(dc, s),
+                         bk._suffix_reduce_plain(dc, s)):
+        assert dc.decode_points(split(got)) == dc.decode_points(split(want))
 
 
 def test_horner_matches_plain(dev):

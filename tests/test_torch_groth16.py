@@ -18,7 +18,7 @@ from davinci_tpu.groth16 import ConstraintSystem as RefCS
 from davinci_tpu.groth16 import Groth16 as RefGroth16
 from davinci_tpu_torch import convert
 from davinci_tpu_torch import fields as TF
-from davinci_tpu_torch.groth16 import ConstraintSystem, Groth16
+from davinci_tpu_torch.groth16 import ConstraintSystem, Groth16, ProveError
 from davinci_tpu_torch.groth16.bases import EncodedBases
 
 torch.set_num_threads(1)
@@ -59,13 +59,22 @@ def keys():
     return dict(ref=ref, port=port, rcs=rcs, tcs=tcs, pk=pk, vk=vk, y=y)
 
 
+def _port_proof(k):
+    """The port's proof with the reference's key and r = 7, s = 11, made
+    once per module."""
+    if "proof" not in k:
+        port = k["port"]
+        pk = convert.proving_key_from_reference(k["pk"], port.g1, port.g2)
+        k["proof"] = port.prove(pk, k["tcs"], r_rand=7, s_rand=11)
+    return k["proof"]
+
+
 def test_proofs_equal_with_the_reference_key(keys):
     k = keys
     port = k["port"]
-    pk = convert.proving_key_from_reference(k["pk"], port.g1, port.g2)
     vk = convert.verifying_key_from_reference(k["vk"], port.g1, port.g2)
     want = k["ref"].prove(k["pk"], k["rcs"], r_rand=7, s_rand=11)
-    got = port.prove(pk, k["tcs"], r_rand=7, s_rand=11)
+    got = _port_proof(k)
     for part in ("a", "b", "c"):
         assert _coords(getattr(got, part)) == _coords(getattr(want, part))
     assert k["ref"].verify(k["vk"], want, [k["y"]])
@@ -116,3 +125,55 @@ def test_segmented_msm_matches_host(keys, group, monkeypatch):
     for p, k in zip(pts, scalars):
         want = want.add(p.mul(k))
     assert port._msm_enc(dc, spec, bases, scalars) == want
+
+
+def _refusals(keys, monkeypatch):
+    """The three refusals of a prove: an unsatisfied witness, a quotient
+    of too high a degree, bases and scalars of different counts."""
+    k = keys
+    port = k["port"]
+    pk = convert.proving_key_from_reference(k["pk"], port.g1, port.g2)
+
+    def unsatisfied():
+        port.prove(pk, _circuit(ConstraintSystem, 3, 99))
+
+    def overflow():
+        # a quotient whose top coefficient is not zero
+        real = port.ntt.df.from_mont
+        monkeypatch.setattr(port.ntt.df, "from_mont",
+                            lambda a: torch.ones_like(real(a)))
+        try:
+            port.prove(pk, _circuit(ConstraintSystem, 3, 35))
+        finally:
+            monkeypatch.setattr(port.ntt.df, "from_mont", real)
+
+    def counts():
+        port._msm_enc(port.dc, port.g1, pk.a_g1, [1] * (len(pk.a_g1) + 1))
+
+    return {"unsatisfied": unsatisfied, "overflow": overflow, "counts": counts}
+
+
+@pytest.mark.parametrize("case", ["unsatisfied", "overflow", "counts"])
+@pytest.mark.parametrize("kind", [ValueError, AssertionError])
+def test_refusals_are_both_error_types(keys, monkeypatch, case, kind):
+    """The reference asserts where the port raises ProveError, which is
+    both a ValueError and an AssertionError."""
+    with pytest.raises(kind) as err:
+        _refusals(keys, monkeypatch)[case]()
+    assert type(err.value) is ProveError
+
+
+def test_explicit_pairing_and_field_give_the_same_proof(keys):
+    """Groth16(name, ctx, fr) as in the reference: BN254's own (ctx, fr)
+    passed explicitly prove as the name does."""
+    from davinci_tpu_torch.pairing import PAIRINGS
+
+    k = keys
+    port = k["port"]
+    explicit = Groth16("bn254", PAIRINGS["bn254"], TF.bn254_fr, device="cpu")
+    assert explicit.ctx is port.ctx and explicit.fr is port.fr
+    pk = convert.proving_key_from_reference(k["pk"], port.g1, port.g2)
+    want = _port_proof(k)
+    got = explicit.prove(pk, k["tcs"], r_rand=7, s_rand=11)
+    for part in ("a", "b", "c"):
+        assert _coords(getattr(got, part)) == _coords(getattr(want, part))

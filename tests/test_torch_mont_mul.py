@@ -101,8 +101,12 @@ def test_unsupported_field_raises_on_the_card_path(name, monkeypatch):
 def test_no_build_for_other_limb_counts():
     with pytest.raises(ValueError, match="L = 64"):
         K.field_consts(K.B6, TF.bw6_761_fp)
+    # B7 is built at L = 22 and 32, B8 at L = 22 only
+    assert K.B7.at(32) is K.B7_L32
+    with pytest.raises(ValueError, match="L = 22 and 32 only, not L = 64"):
+        K.B7.at(64)
     with pytest.raises(ValueError, match="L = 22 only"):
-        K.B7.at(32)
+        K.B8["v2d"].at(32)
 
 
 @pytest.mark.parametrize("a_shape,b_shape", [

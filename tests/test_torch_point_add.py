@@ -28,7 +28,9 @@ from davinci_tpu_torch.msm.pippenger import scalars_to_limbs
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
-CURVES = ["bn254_g1", "bn254_g2"]
+# BLS12-377's Fp2 has u^2 = -5 (the kernels' nr != -1 branch), BLS12-381's
+# u^2 = -1; both at L = 32
+CURVES = ["bn254_g1", "bn254_g2", "bls377_g2", "bls381_g2"]
 # one batch shape for every case: the reference jit-compiles per shape
 N = 4
 
@@ -106,7 +108,7 @@ def test_point_ops_match_reference(name):
     _same(R.identity((2,)), T.identity((2,)))
 
 
-@pytest.mark.parametrize("name", CURVES)
+@pytest.mark.parametrize("name", CURVES[:2])
 def test_scalar_mul_matches_reference(name):
     rspec, tspec, R, T = _curves(name)
     rng = random.Random(14)
