@@ -17,8 +17,8 @@ Phases, one line of output each (any failure raises and exits non-zero):
      limb-equal to its plain version; kernel (events and profiler device
      time), plain and bound times at each n.
   3b. A 4,096-point BLS12-377 G2 MSM through `msm` (the fused route on B7
-     at L = 32) against a host oracle, with B7-L32's launches: the path
-     the L = 32 build of B7 serves.
+     and B5's G2 build at L = 32) against a host oracle, with their
+     launches: the path the L = 32 builds of B7 and B5-G2 serve.
   4a. The fused-pipeline BN254 G1 MSM (`_msm_fused`, the G2 path) at
      n = 2^17, equal to a host oracle (64 distinct points tiled, so
      per-point scalar sums give the answer).
@@ -29,15 +29,21 @@ Phases, one line of output each (any failure raises and exits non-zero):
   4c. B2-B5 each against their plain version, limb for limb, on the
      inputs recorded in 4b (B4, K = 256 and M = 44: against the plain
      version of its split order, and as points against the reference's
-     order); kernel and plain times, and each kernel's bound.
+     order); kernel (events and profiler device time) and plain times,
+     and each kernel's bound, and B5's microseconds per dependent add.
   5. The ballot-proof circuit (c1, 99,946 constraints) end to end: host
      circuit build, Groth16 setup on the card, one prove with fixed
      randomness that must verify (pairing check), one more timed prove;
      the stage times and the kernel launch counts of the prove, the main
      path (every G1 MSM on the scan path, the G2 MSM fused, every field
-     product on B6); each L = 22 kernel must be launched.  Beside them the
-     prove's B7 launches by batch size, and the times of its four G1 MSMs
-     and its G2 MSM.
+     product on B6, the G2 window combine one launch of B5's G2 build);
+     each L = 22 kernel must be launched.  Beside them the prove's B7
+     launches by batch size (none of one add may be left), and the times
+     of its four G1 MSMs and its G2 MSM.
+  5b. B5's G2 build against its plain version, limb for limb, on the
+     window sums of c1's b2 MSM (L = 22) and of 3b's MSM (L = 32): event
+     and device times, the plain time, the bound and the microseconds
+     per dependent add of its 273-add chain.
   6. B6 (Montgomery product) on 2^16 random elements plus 0, 1, p - 1 and
      raw values up to R - 1 through to_mont, for every field it is built
      for (L = 22 and L = 32), limb-equal to its plain version; kernel and
@@ -399,17 +405,20 @@ def g2_add_phase(dev, names=G2_CURVES, sizes=G2_SIZES, k=64):
 
 def g2_msm_phase(dev, rng_np):
     """A 4,096-point BLS12-377 G2 MSM through `msm` (the fused route, B7
-    at L = 32) against the host oracle; B7-L32's launches in it."""
+    and B5's G2 build at L = 32) against the host oracle; their launches
+    in it, and the arguments of its Horner launch."""
     from davinci_tpu_torch import curves as C
     from davinci_tpu_torch import kernels as K
     from davinci_tpu_torch.msm import msm
 
     case = tiled_msm_case(dev, rng_np, n=4096, spec=C.bls377_g2)
-    K.B7_L32.launches = 0
-    res = msm_phase(msm, case)
-    res["launches"] = K.B7_L32.launches
-    check(res["launches"] > 0, "the G2 MSM did not launch B7 at L = 32")
-    return res
+    K.B7_L32.launches = K.B5G2_L32.launches = 0
+    with Capture(("horner_g2_kernel",)) as cap:
+        res = msm_phase(msm, case)
+    res["launches"] = {k.name: k.launches for k in (K.B7_L32, K.B5G2_L32)}
+    for name, count in res["launches"].items():
+        check(count > 0, f"the G2 MSM did not launch {name}")
+    return res, cap.args
 
 
 class G2Batches:
@@ -610,8 +619,44 @@ def scan_kernels_phase(args, tag="[4c]"):
         res[kernel.name] = {**shape, "adds": adds, "max_abs_err": err,
                             "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": bound_ms, "bound_by": bound_by}
+        res[kernel.name]["device_ms"] = device_ms(run, 20,
+                                                  kernel_function(kernel))
+        if kernel.builds[22] is K.B5:  # its chain: one dependent add at a time
+            chain_adds = (W - 1) * (wbits + 1)
+            res[kernel.name]["chain_adds"] = chain_adds
+            res[kernel.name]["us_per_add"] = ms * 1e3 / chain_adds
         say(f"{tag} {kernel.name} {res[kernel.name]}")
     return res
+
+
+def g2_horner_phase(args, tag):
+    """B5's G2 build (the build for the curve's L) against its plain
+    version on the window sums a G2 MSM gave it: the largest difference,
+    event and device times, the plain time, the bound, the chain's
+    microseconds per dependent add (by events: one launch of several
+    milliseconds, whose profiler time can miss records)."""
+    from davinci_tpu_torch.msm import bucket_kernel as bk
+
+    dc, sums, wbits = args["horner_g2_kernel"]
+    W, B = sums[0].shape[:2]
+    L = dc.df.L
+    kernel = bk.B5G2.at(L)
+    run = lambda: bk.horner_g2_kernel(dc, sums, wbits)
+    plain = lambda: bk._horner_rows_plain(dc, sums, wbits)
+    err = max_err(run(), plain())
+    check(err == 0, f"{kernel.name} differs from its plain version")
+    chain = (W - 1) * (wbits + 1)
+    ms = cuda_ms(run, 5)
+    dev_ms = device_ms(run, 20, "horner_g2_kernel")
+    plain_ms = cuda_ms(plain, 1, warm=False)
+    bound_ms, bound_by = bound(3 * 2 * L * (W + 1) * B * 4, B * chain,
+                               "add_g2", L)
+    out = {"curve": dc.spec.name, "W": W, "B": B, "chain_adds": chain,
+           "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+           "us_per_add": ms * 1e3 / chain, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    say(f"{tag} {kernel.name} {out}")
+    return kernel.name, out
 
 
 def captured_add_phase(args):
@@ -893,7 +938,7 @@ def groth16_phase(dev, cs, public, kernels, stages):
     stages.took.clear()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with G2Batches() as g2:
+    with G2Batches() as g2, Capture(("horner_g2_kernel",)) as cap:
         proof = g16.prove(pk, cs, r_rand=7, s_rand=11)
     out["prove_first_s"] = time.perf_counter() - t0
     out["prove_launches"] = {k.name: k.launches for k in kernels}
@@ -901,6 +946,8 @@ def groth16_phase(dev, cs, public, kernels, stages):
     out["stages_first_s"] = dict(stages.took)
     for k in kernels:
         check(k.launches > 0, f"{k.name} was not launched by the prove")
+    check(1 not in g2.sizes, "the prove made G2 adds of one point")
+    out["horner_g2_args"] = cap.args
     t0 = time.perf_counter()
     check(g16.verify(vk, proof, public), "proof does not verify")
     out["verify_s"] = time.perf_counter() - t0
@@ -1014,7 +1061,8 @@ def main(argv) -> int:
     # c1's path
     kernels = [k for k in K.KERNELS if k.limbs == 22 and k not in b8]
     # the blob path: every L = 32 build but G2's, which 3b's MSM drives
-    kernels32 = [k for k in K.KERNELS if k.limbs == 32 and k is not K.B7_L32]
+    kernels32 = [k for k in K.KERNELS if k.limbs == 32
+                 and k not in (K.B7_L32, K.B5G2_L32)]
     g1 = get_device_curve(C.bn254_g1, dev)
     res = {K.B1.name: point_add_phase(K.B1, C.bn254_g1, g1, 256, rng)}
     say(f"[2] B1 {res[K.B1.name]}")
@@ -1022,7 +1070,7 @@ def main(argv) -> int:
     # the kernels line: each build at the b2 MSM's accumulate launches
     res[K.B7.name] = g2_add["bn254_g2"][G2_SIZES[2]]
     res[K.B7_L32.name] = g2_add["bls377_g2"][G2_SIZES[2]]
-    g2_msm = g2_msm_phase(dev, rng_np)
+    g2_msm, g2_horner_l32 = g2_msm_phase(dev, rng_np)
     say(f"[3b] BLS12-377 G2 MSM through msm equal to the host oracle: "
         f"{g2_msm}")
 
@@ -1043,8 +1091,12 @@ def main(argv) -> int:
     cs, public, build_s = ballot_circuit()
     c1 = groth16_phase(dev, cs, public, kernels, stages)
     c1["build_s"] = build_s
+    horner_g2 = c1.pop("horner_g2_args")
 
     say(f"[5] c1 summary {json.dumps(c1)}")
+    for args in (horner_g2, g2_horner_l32):  # c1's b2 sums, then 3b's
+        name, out = g2_horner_phase(args, "[5b]")
+        res[name] = out
 
     b6 = mont_mul_phase(dev)
     res[K.B6.name] = b6["bn254_fr"]  # the c1 NTT's field
@@ -1056,7 +1108,7 @@ def main(argv) -> int:
     res.update(addk_res)
 
     launches = {**c1["prove_launches"], **blob["launches"], **addk_launches,
-                K.B7_L32.name: g2_msm["launches"]}
+                **g2_msm["launches"]}
     say(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "limbs": k.limbs,

@@ -1,4 +1,4 @@
-// The bucket-scan MSM path's kernels for G1, built once per limb count
+// The bucket-scan MSM path's kernels, built once per limb count
 // (-DDAVINCI_L): L = 22 (BN254) and L = 32 (BLS12-381/377):
 //
 //   B2 davinci_bucket_scan_g1    replaces davinci_tpu/msm/bucket_kernel.py
@@ -8,24 +8,31 @@
 //   B4 davinci_suffix_reduce_g1  ::_suffix_reduce_kernel (the same sums
 //                                over the leading axis of (K, 3L, M))
 //   B5 davinci_horner_g1         ::_horner_kernel (sum_w 2^(wbits w) S_w)
+//   B5 davinci_horner_g2         davinci_tpu/msm/pippenger.py::_horner on
+//                                G2 (the fused route's window combine,
+//                                whose steps are _point_add2_kernel)
 //
 // The TPU kernels carry an accumulator in VMEM across sequential grid
-// steps.  Here one thread owns one lane and walks the sequential axis in a
-// loop, its accumulators in registers (B4: one chunk of it, see below).
-// Every group operation is field.cuh's canonical rcb15 or rcb15_mixed
-// (doublings are rcb15(t, t), as in the reference), so the outputs equal
-// the plain PyTorch versions of msm/bucket_kernel.py limb for limb (B4:
-// `_suffix_reduce_split_plain`, which adds in the kernel's order).  Limb-major arrays are read with
-// limb i of lane l at i * stride + l, so neighbouring threads touch
-// neighbouring words.
+// steps.  Here a loop walks the sequential axis: B3 and B4 give one thread
+// to a lane (B4: to one chunk of it, see below), its accumulators in
+// registers; B2 and B5 give a lane six threads of a warp, which share each
+// add (group6.cuh) and keep the accumulator in shared memory.  Every group
+// operation is canonical RCB15 (field.cuh's rcb15 / rcb15_mixed, or their
+// six-thread forms; doublings are rcb15(t, t), as in the reference), so the
+// outputs equal the plain PyTorch versions of msm/bucket_kernel.py limb for
+// limb (B4: `_suffix_reduce_split_plain`, which adds in the kernel's
+// order).  Limb-major arrays are read with limb i of lane l at
+// i * stride + l, so neighbouring threads touch neighbouring words.
 //
 // What bounds them on the card:
 //   B2 moves the most bytes of the four (at n = 2^17 with 22 windows it
 //   reads 0.2 GB of planes and keys and writes a 0.76 GB stream) and does
-//   one mixed add (13 field muls) per point and window.  Its stream is
-//   written as one 264-byte row per thread and position, the reference's
-//   (rows, NL, 3L) layout that the tail gather reads as rows; those writes
-//   are not coalesced, which is left for a later change.
+//   one mixed add (13 field muls) per point and window; at c1's 45,056
+//   lanes one thread per lane left about 11 warps per SM to hide each
+//   product's latency.  Six threads a lane shorten each add to two
+//   products in a row and put six times the threads in flight; a block
+//   reads its lanes' planes as one tile and each warp writes its lanes'
+//   264-byte rows side by side, so both are coalesced.
 //   B3 does 2 complete adds per bucket: multiply bound, with Wt * C lanes
 //   (5,632 at c1) in flight.
 //   B4 and B5 are chains of dependent adds on few lanes (B4: 2K - 1 adds on
@@ -33,11 +40,12 @@
 //   not throughput, bounds them, far from any roofline.  B4 splits its
 //   chain into P chunks of T rows walked by P threads, then combines the
 //   chunk sums (about 2T + 2P + log2 T adds in a row instead of 2K: 67 at
-//   K = 256, T = 16); B5's chain is still one thread's.
+//   K = 256, T = 16); B5 keeps the reference's chain (273 adds at c1) and
+//   cuts each add's latency to two or three products in a row.
 
 #include <cstring>
 
-#include "field.cuh"
+#include "group6.cuh"
 
 namespace {
 
@@ -62,46 +70,71 @@ __device__ __forceinline__ void set_identity(F& X, F& Y, F& Z,
 // B2.  planes: (rows, LP, nl) uint32 words, plane j = bits [16j, 16j+16)
 // of x in the low and of y in the high half (at L = 22 plane 16 is zero
 // for values below 2^256); keys: (rows, nl) sorted keys; out: (rows, nl, 3L).
-__global__ void __launch_bounds__(THREADS)
+// One six-thread group per lane (group6.cuh's madd6), SCAN_LANES lanes per
+// block.  Per row the block reads its lanes' planes and keys as one tile
+// (consecutive threads on consecutive words), each group folds its point
+// into its accumulator (in shared memory), and each warp writes its lanes'
+// rows, nw * 3L consecutive words, with consecutive threads on consecutive
+// words.  The curve's 3b must be small (Consts::b3_small, not 0).
+constexpr int SCAN_WARPS = 4;
+constexpr int SCAN_LANES = SCAN_WARPS * GROUPS;
+
+struct ScanGroup {
+  Pt6<L> acc;
+  Scratch6<L> x;
+};
+
+__global__ void __launch_bounds__(32 * SCAN_WARPS)
     bucket_scan_kernel(const uint32_t* __restrict__ planes,
                        const int32_t* __restrict__ keys,
                        int32_t* __restrict__ out, const Cst c,
                        long long rows, long long nl, int is_signed) {
-  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= nl) return;
-  F b3, one, zero;
-  set_b3(b3, c);
+  __shared__ uint32_t tile[LP][SCAN_LANES];
+  __shared__ int32_t tkey[SCAN_LANES];
+  __shared__ ScanGroup grp[SCAN_LANES];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / GROUP, r = lane % GROUP;
+  const long long l0 = (long long)blockIdx.x * SCAN_LANES;
+  const int nb = (int)(nl - l0 < SCAN_LANES ? nl - l0 : SCAN_LANES);
+  const int w0 = warp * GROUPS;  // the warp's first lane in the block
+  const int nw = nb - w0 < 0 ? 0 : (nb - w0 < GROUPS ? nb - w0 : GROUPS);
+  const bool mine = g < nw;      // this group has a lane
+  ScanGroup& G = grp[mine ? w0 + g : 0];
+  F one, zero;
   set_words(one, c.one);
 #pragma unroll
   for (int k = 0; k < N; k++) zero.w[k] = 0;
-  F X, Y, Z;
   int prev = 0;
-  for (long long r = 0; r < rows; r++) {
-    const int key = keys[r * nl + l];
-    const uint32_t* pl = planes + r * LP * nl + l;
+  for (long long row = 0; row < rows; row++) {
+    __syncthreads();  // the last row's tile is read
+    const uint32_t* pl = planes + row * LP * nl + l0;
+    for (int i = threadIdx.x; i < LP * nb; i += blockDim.x)
+      tile[i / nb][i % nb] = pl[(long long)(i / nb) * nl + i % nb];
+    if (threadIdx.x < nb) tkey[threadIdx.x] = keys[row * nl + l0 + threadIdx.x];
+    __syncthreads();
+    const int key = mine ? tkey[w0 + g] : 0;
     F x, y;
+    if (mine) {
 #pragma unroll
-    for (int k = 0; k < N; k++) {
-      const uint32_t lo = pl[(2 * k) * nl], hi = pl[(2 * k + 1) * nl];
-      x.w[k] = (lo & 0xFFFFu) | (hi << 16);
-      y.w[k] = (lo >> 16) | (hi & 0xFFFF0000u);
+      for (int k = 0; k < N; k++) {
+        const uint32_t lo = tile[2 * k][w0 + g], hi = tile[2 * k + 1][w0 + g];
+        x.w[k] = (lo & 0xFFFFu) | (hi << 16);
+        y.w[k] = (lo >> 16) | (hi & 0xFFFF0000u);
+      }
+      if (is_signed && (key & 1)) sub(y, zero, y, c);  // -P = (x, -y)
     }
-    if (is_signed && (key & 1)) sub(y, zero, y, c);  // -P = (x, -y)
     // same bucket: with signed keys (2 * bucket + sign) a run may cross
     // the sign boundary; its points are already negated
-    const bool same =
-        r > 0 && (is_signed ? (key >> 1) == (prev >> 1) : key == prev);
-    if (same) {
-      rcb15_mixed(X, Y, Z, X, Y, Z, x, y, b3, c);
-    } else {
-      X = x;
-      Y = y;
-      Z = one;
+    const bool same = mine && row > 0 &&
+                      (is_signed ? (key >> 1) == (prev >> 1) : key == prev);
+    madd6(G.acc, G.acc, x, y, G.x, r, same, c);
+    if (mine && !same && r < 3) st(G.acc.c[r], r == 0 ? x : (r == 1 ? y : one));
+    __syncwarp();
+    int32_t* o = out + (row * nl + l0 + w0) * (3 * L);
+    for (int i = lane; i < nw * 3 * L; i += 32) {
+      const int k = i % (3 * L);
+      o[i] = limb_of<L>(grp[w0 + i / (3 * L)].acc.c[k / L], k % L);
     }
-    int32_t* o = out + (r * nl + l) * (3 * L);
-    store(o, X);
-    store(o + L, Y);
-    store(o + 2 * L, Z);
     prev = key;
   }
 }
@@ -266,36 +299,90 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // B5.  s*: (L, W * B) window-major sums (window w, batch b at column
-// w * B + b); one thread per batch column, walking the windows downward.
-// o*: (L, B).
-__global__ void __launch_bounds__(THREADS)
+// w * B + b); o*: (L, B).  One six-thread group per batch column walks the
+// windows downward: wbits doublings rcb15(T, T) and one add per window
+// (group6.cuh's add6), the state in shared memory.
+struct HornerGroup {
+  Pt6<L> t, s;  // the running sum and the next window's sum
+  Scratch6<L> x;
+};
+
+__global__ void __launch_bounds__(32)
     horner_kernel(const int32_t* __restrict__ sx,
                   const int32_t* __restrict__ sy,
                   const int32_t* __restrict__ sz, int32_t* __restrict__ ox,
                   int32_t* __restrict__ oy, int32_t* __restrict__ oz,
                   const Cst c, long long W, long long B, long long wbits) {
-  const long long bi = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (bi >= B) return;
+  __shared__ HornerGroup grp[GROUPS];
+  const int g = threadIdx.x / GROUP, r = threadIdx.x % GROUP;
+  const long long bi = (long long)blockIdx.x * GROUPS + g;
+  const bool act = g < GROUPS && bi < B;
+  HornerGroup& h = grp[act ? g : 0];
   const long long WB = W * B;
-  F b3, TX, TY, TZ;
-  set_b3(b3, c);
-  const long long top = (W - 1) * B + bi;
-  load(TX, sx + top, WB);
-  load(TY, sy + top, WB);
-  load(TZ, sz + top, WB);
-  for (long long w = W - 2; w >= 0; w--) {
-    for (long long i = 0; i < wbits; i++)
-      rcb15(TX, TY, TZ, TX, TY, TZ, TX, TY, TZ, b3, c);
-    F SX, SY, SZ;
-    const long long o = w * B + bi;
-    load(SX, sx + o, WB);
-    load(SY, sy + o, WB);
-    load(SZ, sz + o, WB);
-    rcb15(TX, TY, TZ, TX, TY, TZ, SX, SY, SZ, b3, c);
+  const int32_t* src[3] = {sx, sy, sz};
+  F a;
+  if (act && r < 3) {
+    load(a, src[r] + (W - 1) * B + bi, WB);
+    st(h.t.c[r], a);
   }
-  store(ox + bi, TX, B);
-  store(oy + bi, TY, B);
-  store(oz + bi, TZ, B);
+  for (long long w = W - 2; w >= 0; w--) {
+    if (act && r < 3) {
+      load(a, src[r] + w * B + bi, WB);
+      st(h.s.c[r], a);
+    }
+    __syncwarp();
+    for (long long i = 0; i < wbits; i++)
+      add6(h.t, h.t, h.t, h.x, r, act, c);
+    add6(h.t, h.t, h.s, h.x, r, act, c);
+  }
+  __syncwarp();
+  int32_t* dst[3] = {ox, oy, oz};
+  if (act && r < 3) {
+    ld(a, h.t.c[r]);
+    store(dst[r] + bi, a, B);
+  }
+}
+
+// B5 on G2 (the fused route's Horner): s*: (W * B, 2L) window-major rows
+// (window w, batch b at row w * B + b); o*: (B, 2L).  The same walk with
+// B7's six-thread G2 add (group6.cuh's add6_g2) on rows in shared memory.
+constexpr int ROW2 = 2 * L;
+
+struct HornerGroupG2 {
+  int32_t t[3][ROW2], s[3][ROW2];
+  Scratch6G2<L> x;
+};
+
+__global__ void __launch_bounds__(32)
+    horner_g2_kernel(const int32_t* __restrict__ sx,
+                     const int32_t* __restrict__ sy,
+                     const int32_t* __restrict__ sz,
+                     int32_t* __restrict__ ox, int32_t* __restrict__ oy,
+                     int32_t* __restrict__ oz, const Cst c, long long W,
+                     long long B, long long wbits) {
+  __shared__ HornerGroupG2 grp[GROUPS];
+  const int g = threadIdx.x / GROUP, r = threadIdx.x % GROUP;
+  const long long bi = (long long)blockIdx.x * GROUPS + g;
+  const bool act = g < GROUPS && bi < B;
+  HornerGroupG2& h = grp[act ? g : 0];
+  const int32_t* src[3] = {sx, sy, sz};
+  auto rows_of = [&](int32_t (*dst)[ROW2], long long row) {
+    for (int i = r; i < 3 * ROW2; i += GROUP)
+      dst[i / ROW2][i % ROW2] = src[i / ROW2][row * ROW2 + i % ROW2];
+  };
+  if (act) rows_of(h.t, (W - 1) * B + bi);
+  for (long long w = W - 2; w >= 0; w--) {
+    if (act) rows_of(h.s, w * B + bi);
+    __syncwarp();
+    for (long long i = 0; i < wbits; i++)
+      add6_g2<L>(h.t, h.t, h.t, h.x, r, act, c);
+    add6_g2<L>(h.t, h.t, h.s, h.x, r, act, c);
+  }
+  __syncwarp();
+  int32_t* dst[3] = {ox, oy, oz};
+  if (act)
+    for (int i = r; i < 3 * ROW2; i += GROUP)
+      dst[i / ROW2][bi * ROW2 + i % ROW2] = h.t[i / ROW2][i % ROW2];
 }
 
 Cst consts_of(const uint32_t* words) {
@@ -319,7 +406,8 @@ extern "C" int davinci_bucket_scan_g1(const int32_t* planes,
                                       long long nl, long long is_signed,
                                       void* stream) {
   if (nl <= 0) return 0;
-  bucket_scan_kernel<<<blocks_for(nl), THREADS, 0, (cudaStream_t)stream>>>(
+  bucket_scan_kernel<<<(unsigned)((nl + SCAN_LANES - 1) / SCAN_LANES),
+                       32 * SCAN_WARPS, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)planes, keys, out, consts_of(consts), rows, nl,
       (int)is_signed);
   return (int)cudaGetLastError();
@@ -359,7 +447,20 @@ extern "C" int davinci_horner_g1(const int32_t* sx, const int32_t* sy,
                                  long long W, long long B, long long wbits,
                                  void* stream) {
   if (B <= 0) return 0;
-  horner_kernel<<<blocks_for(B), THREADS, 0, (cudaStream_t)stream>>>(
-      sx, sy, sz, ox, oy, oz, consts_of(consts), W, B, wbits);
+  horner_kernel<<<(unsigned)((B + GROUPS - 1) / GROUPS), 32, 0,
+                  (cudaStream_t)stream>>>(sx, sy, sz, ox, oy, oz,
+                                          consts_of(consts), W, B, wbits);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int davinci_horner_g2(const int32_t* sx, const int32_t* sy,
+                                 const int32_t* sz, int32_t* ox, int32_t* oy,
+                                 int32_t* oz, const uint32_t* consts,
+                                 long long W, long long B, long long wbits,
+                                 void* stream) {
+  if (B <= 0) return 0;
+  horner_g2_kernel<<<(unsigned)((B + GROUPS - 1) / GROUPS), 32, 0,
+                     (cudaStream_t)stream>>>(sx, sy, sz, ox, oy, oz,
+                                             consts_of(consts), W, B, wbits);
   return (int)cudaGetLastError();
 }

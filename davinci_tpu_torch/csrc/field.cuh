@@ -46,6 +46,8 @@ struct Consts {
   uint32_t np0;                 // -p^-1 mod 2^32
   uint32_t nr_is_m1;            // nr == -1: c0 = t0 - t1
   uint32_t one[Radix<L>::N];    // 1 in Montgomery form (R mod p)
+  uint32_t b3_small;            // G1: 3b as an integer where below 2^8,
+                                // else 0 (group6.cuh)
 };
 
 template <int L_>

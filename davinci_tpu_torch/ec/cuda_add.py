@@ -105,9 +105,22 @@ def _consts(curve):
             B7, curve.df.spec, b3=(_int_of(curve.b3[0]), _int_of(curve.b3[1])),
             nr=_int_of(curve.ops.nr_mont), nr_is_m1=curve.ops.nr_is_m1)
     else:
-        consts = field_consts(B1, curve.df.spec, b3=(_int_of(curve.b3), 0))
+        b3 = _int_of(curve.b3)
+        spec = curve.df.spec
+        consts = field_consts(B1, spec, b3=(b3, 0),
+                              b3_small=b3_small(spec.p, spec.num_limbs, b3))
     curve._cuda_add_consts = consts
     return consts
+
+
+B3_SMALL_MAX = 1 << 8
+
+
+def b3_small(p, L, b3_mont):
+    """3b as an integer from its Montgomery form (radix 2^(12L)) where it
+    is below B3_SMALL_MAX, else 0: the kernels' field.cuh Consts word."""
+    v = b3_mont * pow(1 << (12 * L), -1, p) % p
+    return v if v < B3_SMALL_MAX else 0
 
 
 def _launch(kernel, curve, p, q):

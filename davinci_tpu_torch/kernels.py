@@ -105,9 +105,12 @@ def check_tensors(kernel, tensors):
     return device
 
 
-def field_consts(kernel, spec, b3=(0, 0), nr=0, nr_is_m1=False):
+def field_consts(kernel, spec, b3=(0, 0), nr=0, nr_is_m1=False,
+                 b3_small=0):
     """The Consts struct of csrc/field.cuh for field `spec` as a ctypes
-    uint32 array (b3 and nr: Montgomery-form ints of the curve).  Raises
+    uint32 array (b3 and nr: Montgomery-form ints of the curve; b3_small:
+    G1's 3b as an integer where it is small, else 0; the six-thread mixed
+    add of csrc/group6.cuh multiplies by it with additions).  Raises
     where no build of `kernel` serves the field: L without a build, or a
     modulus of 32N - 1 bits or more (2p must fit N words)."""
     L = spec.num_limbs
@@ -124,7 +127,7 @@ def field_consts(kernel, spec, b3=(0, 0), nr=0, nr_is_m1=False):
 
     np0 = (-pow(p, -1, 1 << 32)) % (1 << 32)
     vals = (w(p) + w(b3[0]) + w(b3[1]) + w(nr) + [np0, int(nr_is_m1)]
-            + w(spec.r_mod_p))
+            + w(spec.r_mod_p) + [b3_small])
     return (ctypes.c_uint32 * len(vals))(*vals)
 
 
@@ -148,14 +151,18 @@ B6 = Kernel("mont_mul", "davinci_mont_mul", _MONT_MUL,
             "davinci_tpu/ff/pallas_mul.py:31", 3, 3)
 B7 = Kernel("point_add_g2", "davinci_point_add_g2", _POINT_ADD,
             "davinci_tpu/ec/pallas_add.py:260", 9, 1)
+# B5 on G2: the fused route's window combine in one launch, in place of
+# the reference's jitted loop of _point_add2_kernel steps
+B5G2 = Kernel("horner_g2", "davinci_horner_g2", _BUCKET,
+              "davinci_tpu/msm/pippenger.py:500", 6, 3)
 # the L = 32 builds (BLS12-381/377 G1, G2 and base fields)
-B1_L32, B2_L32, B3_L32, B4_L32, B5_L32, B6_L32, B7_L32 = (
-    k.build_for(32) for k in (B1, B2, B3, B4, B5, B6, B7))
+B1_L32, B2_L32, B3_L32, B4_L32, B5_L32, B6_L32, B7_L32, B5G2_L32 = (
+    k.build_for(32) for k in (B1, B2, B3, B4, B5, B6, B7, B5G2))
 # B8: the point-add experiment's four G1 add designs, BN254 at L = 22 only
 # (ec/addk_exp.py); the field's constants are compiled in (consts NULL)
 B8 = {v: Kernel(f"addk_{v}", f"davinci_addk_{v}", _ADDK,
                 "scripts/addk_exp.py:354", 9, 1)
       for v in ("v2d", "lazy", "kara", "addonly")}
-KERNELS = (B1, B2, B3, B4, B5, B6, B7,
-           B1_L32, B2_L32, B3_L32, B4_L32, B5_L32, B6_L32, B7_L32,
+KERNELS = (B1, B2, B3, B4, B5, B6, B7, B5G2,
+           B1_L32, B2_L32, B3_L32, B4_L32, B5_L32, B6_L32, B7_L32, B5G2_L32,
            *B8.values())

@@ -1,9 +1,9 @@
 """The bucket-scan MSM path's kernels and the PyTorch around them.
 Counterpart of `davinci_tpu/msm/bucket_kernel.py`.
 
-Four hand-written CUDA kernels (`csrc/bucket.cu`, G1 only, built for
-L = 22 (BN254) and L = 32 (BLS12-381/377)), each with its plain PyTorch
-version beside its wrapper:
+Hand-written CUDA kernels (`csrc/bucket.cu`, built for L = 22 (BN254)
+and L = 32 (BLS12-381/377)), each with its plain PyTorch version beside
+its wrapper:
 
   * B2 `_bucket_scan`: walks each lane of the sorted, column-major point
     stream, folding a point into the running accumulator with the mixed
@@ -13,10 +13,12 @@ version beside its wrapper:
     and B_c = sum_k k S_kC+c of (L, Wt, NB) bucket arrays.
   * B4 `suffix_reduce_kernel`: A = sum_k s_k, B = sum_k k s_k over the
     leading axis of (K, 3L, M), split into chunks walked in parallel.
-  * B5 `horner_kernel`: sum_w 2^(wbits w) S_w, MSB first.
+  * B5 `horner_kernel`: sum_w 2^(wbits w) S_w, MSB first; on G2 rows
+    `horner_g2_kernel` (the fused route's window combine).
 
 The TPU carries each accumulator across sequential grid steps in VMEM;
-here one CUDA thread owns a lane and walks the sequential axis in a loop.
+here a loop walks the sequential axis: B3 and B4 give a lane one CUDA
+thread, B2 and B5 six threads of a warp that share each add.
 A wrapper runs the plain version on CPU tensors only; on CUDA tensors it
 launches its kernel or raises.  Both give canonical limbs, so they agree
 limb for limb (B4's kernel with `_suffix_reduce_split_plain`, its CPU
@@ -36,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from davinci_tpu_torch.ec.cuda_add import _consts, rcb15_mixed_plain, rcb15_plain
-from davinci_tpu_torch.kernels import B2, B3, B4, B5, check_tensors
+from davinci_tpu_torch.kernels import B2, B3, B4, B5, B5G2, check_tensors
 
 REDUCE_C = 256  # lanes per window chunk of the bucket reduce (K = NB / C rows)
 
@@ -50,11 +52,14 @@ def _require(kernel, cond, what):
         raise ValueError(f"{kernel.name}: {what}")
 
 
-def _cuda_curve(kernel, curve, tensors):
-    """Checks before a launch: a G1 curve with a build of the kernel for
-    its limb count (L = 22 or 32; the Consts array raises otherwise) and
-    contiguous operands.  Returns that build and the Consts array."""
-    _require(kernel, curve.ops.coord_ndim == 1, "built for G1 (Fp) only")
+def _cuda_curve(kernel, curve, tensors, coord_ndim=1):
+    """Checks before a launch: a curve of the kernel's group (G1, or G2
+    for coord_ndim 2) with a build of the kernel for its limb count
+    (L = 22 or 32; the Consts array raises otherwise) and contiguous
+    operands.  Returns that build and the Consts array."""
+    _require(kernel, curve.ops.coord_ndim == coord_ndim,
+             "built for G2 (Fp2) only" if coord_ndim == 2
+             else "built for G1 (Fp) only")
     _require(kernel, all(t.is_contiguous() for t in tensors),
              "operands must be contiguous")
     return kernel.at(curve.df.L), _consts(curve)
@@ -107,7 +112,9 @@ def _unpack12(u, L: int):
 def _bucket_scan(curve, pts_arr, keys_arr, signed=False):
     """pts_arr: (rows, LP, NL) sorted column-major packed affine points;
     keys_arr: (rows, NL) sorted keys (signed: 2 * bucket + sign).
-    Returns the projective running accumulator stream (rows, NL, 3L)."""
+    Returns the projective running accumulator stream (rows, NL, 3L).
+    The kernel multiplies by 3b with additions: a curve whose 3b is not
+    small (`cuda_add.b3_small` 0) is refused."""
     device = check_tensors(B2, (pts_arr, keys_arr))
     rows, LP, nl = pts_arr.shape
     L = curve.df.L
@@ -117,10 +124,12 @@ def _bucket_scan(curve, pts_arr, keys_arr, signed=False):
     if device.type == "cpu":
         return _bucket_scan_plain(curve, pts_arr, keys_arr, signed)
     kernel, consts = _cuda_curve(B2, curve, (pts_arr, keys_arr))
+    _require(B2, consts[len(consts) - 1] != 0,
+             f"3b of {curve.df.spec.name}'s curve is not a small integer")
     out = torch.empty((rows, nl, 3 * L), dtype=torch.int32, device=device)
     if out.numel():
         kernel.launch(device, (pts_arr, keys_arr, out), consts,
-                  (rows, nl, int(signed)))
+                      (rows, nl, int(signed)))
     return out
 
 
@@ -379,3 +388,36 @@ def _horner_plain(curve, sums, W: int, wbits: int):
             tot = rcb15_plain(curve, tot, tot)
         tot = rcb15_plain(curve, tot, tuple(a[w] for a in S))
     return tuple(a.T.contiguous() for a in tot)
+
+
+def horner_g2_kernel(curve, sums, wbits: int):
+    """Window combine on G2 rows: (W, B, 2, L) x3 window-major, contiguous
+    -> (B, 2, L) x3 = sum_w 2^(wbits w) S_w, MSB first: wbits doublings
+    and one add per lower window, the order of the reference's
+    `pippenger._horner`.  One launch on CUDA."""
+    device = check_tensors(B5G2, sums)
+    W, B = sums[0].shape[:2]
+    L = curve.df.L
+    _require(B5G2, tuple(sums[0].shape[2:]) == (2, L) and W > 0,
+             f"sums shaped {tuple(sums[0].shape)}")
+    _require(B5G2, all(s.shape == sums[0].shape for s in sums),
+             "coordinates differ in shape")
+    if device.type == "cpu":
+        return _horner_rows_plain(curve, sums, wbits)
+    kernel, consts = _cuda_curve(B5G2, curve, sums, coord_ndim=2)
+    outs = tuple(torch.empty((B, 2, L), dtype=torch.int32, device=device)
+                 for _ in range(3))
+    if B:
+        kernel.launch(device, (*sums, *outs), consts, (W, B, wbits))
+    return outs
+
+
+def _horner_rows_plain(curve, sums, wbits: int):
+    """The plain window combine on rows (W, ...) x3 -> (...) x3."""
+    W = sums[0].shape[0]
+    tot = tuple(a[W - 1] for a in sums)
+    for w in reversed(range(W - 1)):
+        for _ in range(wbits):
+            tot = rcb15_plain(curve, tot, tot)
+        tot = rcb15_plain(curve, tot, tuple(a[w] for a in sums))
+    return tot

@@ -18,7 +18,8 @@ the reference does:
     column-major (rows, COLS); a Python loop walks the rows and writes
     finished segments into the bucket array; runs that cross columns
     merge by a log-depth segmented suffix sum; sum_b b*S_b by a
-    Hillis-Steele suffix scan plus a tree sum; Horner last.
+    Hillis-Steele suffix scan plus a tree sum; Horner last (on CUDA one
+    launch of B5's G2 build).
 
 The tests drive `_msm_fused` and `_msm_scan` directly on the CPU, where
 every kernel wrapper runs its plain version.
@@ -223,13 +224,18 @@ def _window_tile(n: int, W: int) -> int:
 
 def _horner(curve, sums, W):
     """Combine window sums: total = sum_j 2^(12 j) * S_j (Horner, MSB down).
-    sums: tuple of (W, ...) tensors."""
-    total = tuple(s[W - 1] for s in sums)
-    for j in range(1, W):
-        for _ in range(WINDOW_BITS):
-            total = curve.double(total)
-        total = curve.add(total, tuple(s[W - 1 - j] for s in sums))
-    return total
+    sums: tuple of (W, ...) tensors.  One launch of B5: G2's (W, ..., 2, L)
+    go to its G2 build as rows, G1's (W, ..., L) through a transpose."""
+    nd = curve.ops.coord_ndim
+    batch, coord = sums[0].shape[1:-nd], sums[0].shape[-nd:]
+    rows = tuple(s.reshape(W, -1, *coord) for s in sums)
+    if nd == 2:
+        out = bucket_kernel.horner_g2_kernel(curve, rows, WINDOW_BITS)
+    else:
+        out = _horner_dispatch(curve, tuple(s.reshape(-1, coord[0]).T
+                                            for s in rows), W)
+        out = tuple(a.T for a in out)
+    return tuple(a.reshape(*batch, *coord) for a in out)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,13 @@
 """davinci_tpu_torch's CUDA kernels on the card (skipped without one).
 
 The hand-written kernels B1 (G1 point add), B7 (G2 point add), the scan
-path's B2-B5 (bucket scan, bucket reduce, suffix reduce, Horner) and B6
-(Montgomery product) are held limb for limb against their plain PyTorch
-versions on the same CUDA tensors, each launch counted once, at L = 22
-and, for B1, B2, B4, B6 and B7, at L = 32 (BLS12-381, and BLS12-377's
-G2, whose Fp2 has u^2 = -5); B4 against the plain version of its split
-order.  The MSMs that run on them (the scan path for G1, the fused
+path's B2-B5 (bucket scan, bucket reduce, suffix reduce, Horner), B5's
+G2 build (the fused route's Horner) and B6 (Montgomery product) are held
+limb for limb against their plain PyTorch versions on the same CUDA
+tensors, each launch counted once, at L = 22 and, for B1, B2, B4, B5,
+B6 and B7, at L = 32 (BLS12-381, and BLS12-377's G2, whose Fp2 has
+u^2 = -5); B4 against the plain version of its split order; B2 and B5
+on edge inputs in both forms of their products by b3.  The MSMs that run on them (the scan path for G1, the fused
 pipeline for G2) are held against a host sum.  B8, the point-add experiment's four designs of the BN254 G1 add
 (ec/addk_exp.py), is held against its plain versions and, for the three
 that compute the canonical add, against B1.
@@ -194,6 +195,110 @@ def test_horner_matches_plain(dev):
     sums = tuple(a.T.contiguous() for a in P)
     _equal_once(K.B5, lambda: bk.horner_kernel(dc, sums, W, pp.WINDOW_BITS),
                 lambda: bk._horner_plain(dc, sums, W, pp.WINDOW_BITS))
+
+
+@pytest.mark.parametrize("nl", [1, 7, 23, 301])
+@pytest.mark.parametrize("name", ["bn254_g1", "bls381_g1"])
+def test_bucket_scan_edges(dev, name, nl):
+    """B2 with lane counts that end inside a warp's five groups and a
+    block's twenty, runs of one point added to itself (the doubling case
+    of the complete mixed add) and signed runs that cross the sign
+    boundary (2b then 2b + 1)."""
+    spec = getattr(C, name)
+    dc = get_device_curve(spec, dev)
+    r = random.Random(11)
+    rows = 6
+    base = [spec.gen.mul(r.randrange(1, spec.r)) for _ in range(5)]
+    pts = [base[r.randrange(5)] for _ in range(rows * nl)]
+    packed, _ = bk.pack_points(dc, *dc.encode_points(pts))
+    pts_arr = packed.reshape(rows, nl, -1).transpose(1, 2).contiguous()
+    pts_arr[:, :, 0] = pts_arr[0, :, 0]  # lane 0: one point, one bucket
+    keys = torch.randint(0, 6, (rows, nl), generator=_gen(12))
+    keys = torch.sort(keys, dim=0).values.to(torch.int32)
+    keys[:, 0] = torch.tensor([4, 4, 4, 5, 5, 5])
+    keys = keys.to(dev).contiguous()
+    for signed in (False, True):
+        _equal_once(
+            K.B2.at(dc.df.L),
+            lambda: bk._bucket_scan(dc, pts_arr, keys, signed),
+            lambda: bk._bucket_scan_plain(dc, pts_arr, keys, signed))
+
+
+@pytest.mark.parametrize("B", [1, 3, 7, 131])
+@pytest.mark.parametrize("name", ["bn254_g1", "bls381_g1"])
+def test_horner_edges(dev, name, B):
+    """B5 with identity windows (the top one of column 0, a lower one of
+    every column) and column counts that end inside a warp's groups."""
+    spec = getattr(C, name)
+    dc = get_device_curve(spec, dev)
+    L, W = dc.df.L, 3
+    r = random.Random(13)
+    pts = dc.encode_points([spec.gen.mul(r.randrange(1, spec.r))
+                            for _ in range(2 * W * B)])
+    P = cuda_add.rcb15_plain(dc, tuple(a[:W * B] for a in pts),
+                             tuple(a[W * B:] for a in pts))
+    sums = tuple(a.T.contiguous() for a in P)  # column w * B + b
+    for a, i in zip(sums, dc.identity((1,))):
+        a[:, (W - 1) * B] = i[0]
+        a[:, B:2 * B] = i[0][:, None]
+    _equal_once(K.B5.at(L),
+                lambda: bk.horner_kernel(dc, sums, W, pp.WINDOW_BITS),
+                lambda: bk._horner_plain(dc, sums, W, pp.WINDOW_BITS))
+
+
+@pytest.mark.parametrize("B", [1, 7])
+@pytest.mark.parametrize("name", ["bn254_g2", "bls377_g2", "bls381_g2"])
+def test_horner_g2_matches_plain(dev, name, B):
+    """B5's G2 build against its plain version, with an identity window,
+    on the three G2 curves (L = 22 and 32, u^2 = -1 and -5)."""
+    spec = getattr(C, name)
+    dc = get_device_curve(spec, dev)
+    W = 4
+    r = random.Random(14)
+    pts = dc.encode_points([spec.gen.mul(r.randrange(1, spec.r))
+                            for _ in range(2 * W * B)])
+    P = cuda_add.rcb15_plain(dc, tuple(a[:W * B] for a in pts),
+                             tuple(a[W * B:] for a in pts))
+    sums = tuple(a.reshape((W, B) + dc._eshape).contiguous() for a in P)
+    for a, i in zip(sums, dc.identity(())):
+        a[1] = i
+    _equal_once(K.B5G2.at(dc.df.L),
+                lambda: bk.horner_g2_kernel(dc, sums, pp.WINDOW_BITS),
+                lambda: bk._horner_rows_plain(dc, sums, pp.WINDOW_BITS))
+
+
+@pytest.mark.parametrize("name", ["bn254_g2", "bls377_g2"])
+def test_g2_msm_combines_windows_in_one_launch(dev, name):
+    """`msm` of a G2 set takes one launch of B5's G2 build and no G2 add
+    of a single point."""
+    spec = getattr(C, name)
+    dc = get_device_curve(spec, dev)
+    r = random.Random(15)
+    n = 2048
+    base = [spec.gen.mul(r.randrange(1, spec.r)) for _ in range(4)]
+    scalars = [r.randrange(spec.r) for _ in range(n)]
+    kernel = K.B5G2.at(dc.df.L)
+    before = kernel.launches
+    sizes = []
+    add = cuda_add.point_add_fp2
+
+    def counted(curve, p, q):
+        sizes.append(torch.broadcast_shapes(p[0].shape, q[0].shape)[:-2])
+        return add(curve, p, q)
+
+    cuda_add.point_add_fp2 = counted
+    try:
+        out = msm(dc, dc.encode_points([base[i % 4] for i in range(n)]),
+                  torch.as_tensor(scalars_to_limbs(spec, scalars), device=dev))
+    finally:
+        cuda_add.point_add_fp2 = add
+    assert kernel.launches == before + 1
+    assert all(torch.Size(s).numel() > 1 for s in sizes)
+    got = dc.decode_points(tuple(a[None] for a in out))[0]
+    want = spec.infinity()
+    for i, b in enumerate(base):
+        want = want.add(b.mul(sum(scalars[i::4]) % spec.r))
+    assert got == want
 
 
 def test_scan_msm_launches_every_kernel(dev):

@@ -465,11 +465,12 @@ def test_kernel_registry_lists_the_slice():
     assert [k.name for k in KERNELS] == [
         "point_add_g1", "bucket_scan_g1", "bucket_reduce_g1",
         "suffix_reduce_g1", "horner_g1", "mont_mul", "point_add_g2",
+        "horner_g2",
         "point_add_g1_l32", "bucket_scan_g1_l32", "bucket_reduce_g1_l32",
         "suffix_reduce_g1_l32", "horner_g1_l32", "mont_mul_l32",
-        "point_add_g2_l32",
+        "point_add_g2_l32", "horner_g2_l32",
         "addk_v2d", "addk_lazy", "addk_kara", "addk_addonly"]
-    assert [k.limbs for k in KERNELS] == [22] * 7 + [32] * 7 + [22] * 4
+    assert [k.limbs for k in KERNELS] == [22] * 8 + [32] * 8 + [22] * 4
 
 
 # -- the reference's interpret-mode kernels ---------------------------------------

@@ -153,7 +153,7 @@ def test_kernel_records_name_their_sources(kernel):
     path, line = kernel.replaces.split(":")
     text = (REPO / path).read_text().splitlines()[int(line) - 1]
     assert re.match(r"def _((point_add2?|scan|reduce|suffix_reduce|horner"
-                    r"|mont_mul)_kernel|add_2d)\(", text), text
+                    r"|mont_mul)_kernel|add_2d|horner)\(", text), text
     assert kernel.symbol in (REPO / kernel.source).read_text()
 
 
