@@ -8,8 +8,13 @@ Phases, one line of output each (any failure raises and exits non-zero):
   1. device: the card's name and power limit; build every CUDA kernel of
      `davinci_tpu_torch/csrc/` with nvcc, each source at L = 22 and
      L = 32 (one process per library, all started together).
-  2. B1 (G1 point add) on 2^16 random BN254 G1 points plus edge cases,
-     limb-equal to its plain PyTorch version; kernel and plain times.
+  2. B1 (G1 point add) at L = 22 (BN254) and L = 32 (BLS12-381) on 2^16
+     random sums plus edge cases and points rescaled near p - 1, on
+     limb-major (L, n) planes (the scan path's entry) and through the row
+     wrapper (`DeviceCurve.add`), limb-equal to its plain PyTorch
+     version; event, device, plain and bound times on planes at 22,
+     45,056 (the scan path's leftover merge) and 2^16 adds, and through
+     the rows at 2^16.
   3. B7 (G2 point add) at L = 22 (BN254) and L = 32 (BLS12-377, whose
      Fp2 has u^2 = -5, and BLS12-381) on random G2 points plus edge cases
      and points rescaled near p - 1, at n = 1 (the G2 Horner's launches),
@@ -27,7 +32,8 @@ Phases, one line of output each (any failure raises and exits non-zero):
      then an edge-case MSM through `msm` (scalars 0, 1 and r-1, a run of
      equal scalars, digits that carry across windows, an infinity base).
   4c. B2-B5 each against their plain version, limb for limb, on the
-     inputs recorded in 4b (B4, K = 256 and M = 44: against the plain
+     inputs recorded in 4b (B5 at both of its shapes, the window Horner
+     and the reduce's combine, a two-window step; B4, K = 256 and M = 44: against the plain
      version of its split order, and as points against the reference's
      order); kernel (events and profiler device time) and plain times,
      and each kernel's bound, and B5's microseconds per dependent add.
@@ -37,7 +43,10 @@ Phases, one line of output each (any failure raises and exits non-zero):
      the stage times and the kernel launch counts of the prove, the main
      path (every G1 MSM on the scan path, the G2 MSM fused, every field
      product on B6, the G2 window combine one launch of B5's G2 build);
-     each L = 22 kernel must be launched.  Beside them the prove's B7
+     each L = 22 kernel must be launched, in the first prove and in the
+     timed one (the steady prove, whose counts the kernels line gives: the
+     first builds the NTT's tables); a line of its own gives the launches
+     of B1, B5 and B6 in both.  Beside them the prove's B7
      launches by batch size (none of one add may be left), and the times
      of its four G1 MSMs and its G2 MSM.
   5b. B5's G2 build against its plain version, limb for limb, on the
@@ -46,8 +55,10 @@ Phases, one line of output each (any failure raises and exits non-zero):
      per dependent add of its 273-add chain.
   6. B6 (Montgomery product) on 2^16 random elements plus 0, 1, p - 1 and
      raw values up to R - 1 through to_mont, for every field it is built
-     for (L = 22 and L = 32), limb-equal to its plain version; kernel and
-     plain times.
+     for (L = 22 and L = 32), on rows, a broadcast row ((1, L) and (L,)),
+     repeating rows and a view at an odd row offset, limb-equal to its
+     plain version; event, device, plain and host times (the host's per
+     call from a loop without a synchronize).
   7. The sequencer's blob path at full size (BLS12-381, L = 32): the
      trusted setup's load (host), then `pack_batch_blob(..., with_kzg=True)`
      of a synthetic 60-vote batch (2,193 cells), whose commitment and
@@ -55,8 +66,8 @@ Phases, one line of output each (any failure raises and exits non-zero):
      y + 1; the launch counts of that run, the second path (each L = 32
      G1 kernel must be launched).  Then a sparse blob's commitment and a
      4,096-point MSM of 64 tiled points against host oracles, recording
-     the inputs of B1-B5, and B1-B5 at L = 32 against their plain versions
-     on them, as in 4c.
+     the inputs of B1-B5 (B1: its first planes, 45,056 adds), and B1-B5
+     at L = 32 against their plain versions on them, as in 4c.
   8. The point-add experiment (`davinci_tpu_torch.ec.addk_exp`, kernel B8
      in four designs of the BN254 G1 complete add: v2d, lazy, kara and
      the addonly diagnostic): its `run_variant` for every variant at the
@@ -66,7 +77,7 @@ Phases, one line of output each (any failure raises and exits non-zero):
      points rescaled near p - 1, and v2d, lazy and kara against B1 on the
      same points; per variant the 30-launch chain's time (events, and
      device time from the profiler), the plain time and the bound, with
-     B1's chain beside them.
+     B1's chain on the same planes beside them.
 
 The line before the last is a JSON object with one entry per kernel (B8:
 per variant) and limb count, with its registers and spills from ptxas;
@@ -79,6 +90,13 @@ prints no result.
 runs phase 3 alone (after building csrc/point_add.cu), for the curves
 whose limb count has a build of B7: the way to time another checkout's
 B7 at the same shapes.
+
+    python3 chip_smoke.py --b1-b6
+
+times B1 (through the rows, and on planes where the checkout has that
+entry) at 45,056 and 2^16 adds on BN254 and BLS12-381 G1, and B6 at 2^16
+on BN254 Fr and BLS12-381 Fp (event, device and host times), in the same
+way for another checkout.
 
 A kernel's bound is the least time the card could take for its work: the
 larger of its bytes (each input read once, each output written once) over
@@ -146,6 +164,22 @@ def cuda_ms(fn, reps, warm=True):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def host_us_per_call(fn, reps=200):
+    """Microseconds of host time per call of fn: a loop of `reps` calls
+    without a synchronize (the launches queue on the card), after one
+    warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def mults_per_mul(L, raw=False):
@@ -276,64 +310,95 @@ def edge_cases(dc, base):
     return cat(lhs), cat(rhs)
 
 
-def point_add_phase(kernel, spec, dc, k, rng):
-    """Kernel vs plain on k*k random points plus the edge cases; spot
-    checks a few results against host affine arithmetic."""
+B1_SIZES = (22, 22 * 2048, 1 << 16)  # the combine's, the merge's, 2^16
+
+
+def b1_phase(dev, name, k=256):
+    """B1 (the build for the curve's L) against its plain version on k*k
+    random sums plus the edge and near-p cases, on limb-major planes and
+    through the row wrapper (`DeviceCurve.add`); a few results and every
+    hard case against host arithmetic.  Event, device and plain times and
+    the bound on planes at each n of B1_SIZES, and through the rows at
+    2^16.  Returns {"planes": {n: result}, "rows": result}."""
     import torch
 
-    from davinci_tpu_torch.ec import cuda_add
+    from davinci_tpu_torch import curves as C
+    from davinci_tpu_torch import kernels as K
+    from davinci_tpu_torch.ec import cuda_add, get_device_curve
 
-    pts, base = random_points(dc, spec, k, rng)
-    n = pts[0].shape[0]
-    shift = rng.randrange(1, n)
+    spec = getattr(C, name)
+    dc = get_device_curve(spec, dev)
+    kernel = K.B1.at(dc.df.L)
+    rng = random.Random(SEED + 2)
+    pts, _ = random_points(dc, spec, k, rng)
+    hosts = [spec.gen.mul(rng.randrange(1, spec.r)) for _ in range(32)]
+    hard_p, hard_q = hard_cases(dc, hosts)
+    shift = rng.randrange(1, k * k)
     other = tuple(torch.roll(a, shift, 0) for a in pts)
-    el, er = edge_cases(dc, base)
-    P = tuple(torch.cat([a, b]) for a, b in zip(pts, el))
-    Q = tuple(torch.cat([a, b]) for a, b in zip(other, er))
-    got = dc.add(P, Q)  # on a CUDA tensor: the kernel
+    P = tuple(torch.cat(c) for c in zip(pts, hard_p))
+    Q = tuple(torch.cat(c) for c in zip(other, hard_q))
+    planes = lambda t: tuple(a.T.contiguous() for a in t)
     want = cuda_add.rcb15_plain(dc, P, Q)
+    err = max(max_err(dc.add(P, Q), want),
+              max_err(cuda_add.point_add_planes(dc, planes(P), planes(Q)),
+                      planes(want)))
     torch.cuda.synchronize()
-    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
-    check(err == 0, f"{kernel.name} differs from its plain version")
-    # host spot check: random pairs and every edge case
+    check(err == 0, f"{kernel.name} differs from its plain version on {name}")
+    n = k * k
     idx = [rng.randrange(n) for _ in range(4)] + list(range(n, P[0].shape[0]))
     sel = lambda t: tuple(a[idx] for a in t)
     host = [a.add(b) for a, b in zip(dc.decode_points(sel(P)),
                                       dc.decode_points(sel(Q)))]
-    check(dc.decode_points(sel(got)) == host, f"{kernel.name} vs host add")
-    Pn = tuple(a[:n] for a in pts)
-    Qn = tuple(a[:n] for a in other)
-    ms = cuda_ms(lambda: dc.add(Pn, Qn), 20)
-    dev_ms = device_ms(lambda: dc.add(Pn, Qn), 20, "point_add_kernel")
-    plain_ms = cuda_ms(lambda: cuda_add.rcb15_plain(dc, Pn, Qn), 3)
-    nbytes = 9 * Pn[0][0].numel() * 4 * n  # 6 coordinates in, 3 out
-    bound_ms, bound_by = bound(
-        nbytes, n, "add_g2" if dc.ops.coord_ndim == 2 else "add", dc.df.L)
-    return {"n": n, "edge_cases": P[0].shape[0] - n, "max_abs_err": err,
-            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+    check(dc.decode_points(sel(want)) == host, f"{kernel.name} vs host add")
+    L = dc.df.L
+    out = {"planes": {}}
+    for m in B1_SIZES:
+        a, b = planes(tuple(x[:m] for x in pts)), planes(
+            tuple(x[:m] for x in other))
+        run = lambda: cuda_add.point_add_planes(dc, a, b)
+        bound_ms, bound_by = bound(9 * m * L * 4, m, "add", L)
+        out["planes"][m] = {
+            "n": m, "checked": P[0].shape[0], "max_abs_err": err,
+            "ms": cuda_ms(run, 20),
+            "device_ms": device_ms(run, 20, "point_add_kernel"),
+            "plain_ms": cuda_ms(lambda: cuda_add.rcb15_plain(
+                dc, tuple(x.T for x in a), tuple(x.T for x in b)), 3),
             "bound_ms": bound_ms, "bound_by": bound_by}
+        say(f"[2] {kernel.name} on planes {out['planes'][m]}")
+    run = lambda: dc.add(pts, other)
+    bound_ms, bound_by = bound(9 * n * L * 4, n, "add", L)
+    out["rows"] = {"n": n, "ms": cuda_ms(run, 20),
+                   "device_ms": device_ms(run, 20, "point_add_rows_kernel"),
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+    say(f"[2] {kernel.name} through the rows {out['rows']}")
+    return out
 
 
 def near_p(dc, pts):
-    """G2 `pts` rescaled projectively by lambda in Fp so that the c0 limbs
-    of Z, X or Y are p - 1 in Montgomery form (lambda = -R^-1, -R^-1 / x0,
-    -R^-1 / y0)."""
+    """`pts` rescaled projectively by lambda in Fp so that (the c0 limbs
+    of) Z, X or Y are p - 1 in Montgomery form (lambda = -R^-1,
+    -R^-1 / x0, -R^-1 / y0); G1 or G2."""
     p = dc.spec.field_spec.p
     Rinv = pow(1 << (12 * dc.df.L), -1, p)
+    g2 = dc.ops.coord_ndim == 2
+    c0 = (lambda v: v[0]) if g2 else (lambda v: v)
+    scaled = ((lambda lam, v: (lam * v[0] % p, lam * v[1] % p)) if g2
+              else (lambda lam, v: lam * v % p))
 
     def rescaled(scale):
         lams = [-Rinv * scale(pt) % p for pt in pts]
         coords = ([pt.x.v for pt in pts], [pt.y.v for pt in pts],
-                  [(1, 0)] * len(pts))
-        return tuple(dc.ops.encode([(lam * a % p, lam * b % p)
-                                    for lam, (a, b) in zip(lams, coord)])
+                  [(1, 0) if g2 else 1] * len(pts))
+        return tuple(dc.ops.encode([scaled(lam, a)
+                                    for lam, a in zip(lams, coord)])
                      for coord in coords)
 
-    return (rescaled(lambda pt: 1), rescaled(lambda pt: pow(pt.x.v[0], -1, p)),
-            rescaled(lambda pt: pow(pt.y.v[0], -1, p)))
+    return (rescaled(lambda pt: 1),
+            rescaled(lambda pt: pow(c0(pt.x.v), -1, p)),
+            rescaled(lambda pt: pow(c0(pt.y.v), -1, p)))
 
 
-def g2_hard_cases(dc, hosts):
+def hard_cases(dc, hosts):
     """(P, Q) pairs of the host points: O + B, B + O, B + B, B + (-B),
     O + O, then sums of rescaled points near p - 1, two representations of
     one point, and P + (-P) among them."""
@@ -368,7 +433,7 @@ def g2_add_phase(dev, names=G2_CURVES, sizes=G2_SIZES, k=64):
         kernel = K.B7.at(dc.df.L)
         hosts = [spec.gen.mul(rng.randrange(1, spec.r)) for _ in range(k)]
         base = dc.encode_points(hosts)
-        hard_p, hard_q = g2_hard_cases(dc, hosts)
+        hard_p, hard_q = hard_cases(dc, hosts)
         out[name] = {}
         for n in sizes:
             i = torch.arange(n, device=dev)
@@ -528,30 +593,35 @@ def edge_msm_phase(dev, n=3000):
 
 
 class Capture:
-    """While installed, records the arguments of the first call of each
-    kernel wrapper named (default: the scan path's B2-B5; "point_add" adds
-    B1), so they can be replayed."""
+    """While installed, records the arguments of every call of each
+    kernel wrapper named (default: the scan path's B2-B5;
+    "point_add_planes" adds B1), so they can be replayed: `calls[name]`
+    lists them in order, `args[name]` is the first."""
 
     WRAPPERS = ("_bucket_scan", "bucket_reduce_kernel",
                 "suffix_reduce_kernel", "horner_kernel")
 
     def __init__(self, names=WRAPPERS):
         self.names = names
-        self.args = {}
+        self.calls = {}
+
+    @property
+    def args(self):
+        return {name: calls[0] for name, calls in self.calls.items()}
 
     @staticmethod
     def _module(name):
         from davinci_tpu_torch.ec import cuda_add
         from davinci_tpu_torch.msm import bucket_kernel as bk
 
-        return cuda_add if name == "point_add" else bk
+        return cuda_add if name.startswith("point_add") else bk
 
     def __enter__(self):
         self.saved = {name: getattr(self._module(name), name)
                       for name in self.names}
         for name, fn in self.saved.items():
             def rec(*args, _name=name, _fn=fn):
-                self.args.setdefault(_name, args)
+                self.calls.setdefault(_name, []).append(args)
                 return _fn(*args)
             setattr(self._module(name), name, rec)
         return self
@@ -561,14 +631,21 @@ class Capture:
             setattr(self._module(name), name, fn)
 
 
-def scan_kernels_phase(args, tag="[4c]"):
+def scan_kernels_phase(calls, tag="[4c]"):
     """B2-B5 (the build for the curve's L) against their plain versions on
-    the main path's inputs: the largest difference, kernel and plain
+    the main path's inputs (`Capture.calls`; B5 at both of its shapes: the
+    window sums, its last call, and the reduce's combine, its first, a
+    Horner step of two windows): the largest difference, kernel and plain
     times, the bound."""
     from davinci_tpu_torch import kernels as K
     from davinci_tpu_torch.msm import bucket_kernel as bk
     from davinci_tpu_torch.msm.pippenger import WINDOW_BITS
 
+    args = {name: c[0] for name, c in calls.items()}
+    args["horner_kernel"] = calls["horner_kernel"][-1]
+    _, csums, cW, cbits = calls["horner_kernel"][0]
+    check(cW == 2 and cbits < WINDOW_BITS, "B5's first call is a combine")
+    cB = csums[0].shape[1] // cW
     dc, pts_arr, keys_arr, signed = args["_bucket_scan"]
     rows, LP, nl = pts_arr.shape
     L = dc.df.L
@@ -584,6 +661,7 @@ def scan_kernels_phase(args, tag="[4c]"):
     B = sums[0].shape[1] // W
     check(wbits == WINDOW_BITS, "Horner's doublings per window")
     word = 4
+    b5 = K.B5.at(L)
     table = [
         (K.B2.at(L), lambda: bk._bucket_scan(dc, pts_arr, keys_arr, signed),
          lambda: bk._bucket_scan_plain(dc, pts_arr, keys_arr, signed),
@@ -597,13 +675,18 @@ def scan_kernels_phase(args, tag="[4c]"):
          lambda: bk._suffix_reduce_split_plain(dc, s, T),
          (Ks + 2) * 3 * L * M * word, M * (2 * Ks - 1), "add",
          {"K": Ks, "M": M, "T": T}),
-        (K.B5.at(L), lambda: bk.horner_kernel(dc, sums, W, wbits),
+        (b5, lambda: bk.horner_kernel(dc, sums, W, wbits),
          lambda: bk._horner_plain(dc, sums, W, wbits),
          3 * L * (W + 1) * B * word, B * (W - 1) * (wbits + 1), "add",
-         {"W": W, "B": B}),
+         {"W": W, "B": B, "wbits": wbits}),
+        (b5, lambda: bk.horner_kernel(dc, csums, cW, cbits),
+         lambda: bk._horner_plain(dc, csums, cW, cbits),
+         3 * L * (cW + 1) * cB * word, cB * (cW - 1) * (cbits + 1), "add",
+         {"W": cW, "B": cB, "wbits": cbits, "combine": True}),
     ]
     res = {}
     for kernel, run, plain, nbytes, adds, kind, shape in table:
+        name = kernel.name + ("_combine" if shape.get("combine") else "")
         got = run()
         want = plain()
         err = max_err(got, want)
@@ -616,16 +699,14 @@ def scan_kernels_phase(args, tag="[4c]"):
         ms = cuda_ms(run, 5)
         plain_ms = cuda_ms(plain, 1, warm=False)
         bound_ms, bound_by = bound(nbytes, adds, kind, L)
-        res[kernel.name] = {**shape, "adds": adds, "max_abs_err": err,
-                            "ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": bound_ms, "bound_by": bound_by}
-        res[kernel.name]["device_ms"] = device_ms(run, 20,
-                                                  kernel_function(kernel))
-        if kernel.builds[22] is K.B5:  # its chain: one dependent add at a time
-            chain_adds = (W - 1) * (wbits + 1)
-            res[kernel.name]["chain_adds"] = chain_adds
-            res[kernel.name]["us_per_add"] = ms * 1e3 / chain_adds
-        say(f"{tag} {kernel.name} {res[kernel.name]}")
+        rec = res[name] = {**shape, "adds": adds, "max_abs_err": err,
+                           "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by}
+        rec["device_ms"] = device_ms(run, 20, kernel_function(kernel))
+        if kernel is b5:  # its chain: one dependent add at a time
+            rec["chain_adds"] = (shape["W"] - 1) * (shape["wbits"] + 1)
+            rec["us_per_add"] = ms * 1e3 / rec["chain_adds"]
+        say(f"{tag} {name} {rec}")
     return res
 
 
@@ -661,24 +742,25 @@ def g2_horner_phase(args, tag):
 
 def captured_add_phase(args):
     """B1 (the build for the curve's L) against its plain version on the
-    first point add a main path ran."""
+    first point add a main path ran (the scan path's planes)."""
     import torch
 
     from davinci_tpu_torch.ec import cuda_add
 
-    dc, p, q = args["point_add"]
+    dc, p, q = args["point_add_planes"]
     kernel = cuda_add.B1.at(dc.df.L)
-    got = cuda_add.point_add(dc, p, q)
-    want = cuda_add.rcb15_plain(dc, p, q)
+    run = lambda: cuda_add.point_add_planes(dc, p, q)
+    rows = lambda t: tuple(a.reshape(a.shape[0], -1).T for a in t)
+    plain = lambda: cuda_add.rcb15_plain(dc, rows(p), rows(q))
+    got = run()
     torch.cuda.synchronize()
-    err = max_err(got, want)
+    err = max_err(rows(got), plain())
     check(err == 0, f"{kernel.name} differs from its plain version")
-    n = torch.broadcast_shapes(p[0].shape, q[0].shape)[0]
-    ms = cuda_ms(lambda: cuda_add.point_add(dc, p, q), 20)
-    plain_ms = cuda_ms(lambda: cuda_add.rcb15_plain(dc, p, q), 3)
+    n = p[0][0].numel()
     bound_ms, bound_by = bound(9 * n * dc.df.L * 4, n, "add", dc.df.L)
-    return kernel.name, {"n": n, "max_abs_err": err, "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+    return kernel.name, {"n": n, "max_abs_err": err, "ms": cuda_ms(run, 20),
+                         "device_ms": device_ms(run, 20, "point_add_kernel"),
+                         "plain_ms": cuda_ms(plain, 3), "bound_ms": bound_ms,
                          "bound_by": bound_by}
 
 
@@ -737,7 +819,9 @@ def mont_mul_phase(dev, n=1 << 16):
             np.array([[(v >> (12 * j)) & 0xFFF for j in range(L)] for v in raw],
                      np.int32), device=dev)
         err = 0
-        for x, y in ((a, b), (c, b[:1024]), (b[:1024], c), (a, b[:1])):
+        for x, y in ((a, b), (c, b[:1024]), (b[:1024], c), (a, b[:1]),
+                     (a, b[0]), (a[1:], b[:-1]),
+                     (a.reshape(2, n // 2, L), b[:n // 2])):
             err = max(err, max_err(cuda_mul.mont_mul(df, x, y),
                                    cuda_mul.mont_mul_plain(df, x, y)))
         torch.cuda.synchronize()
@@ -751,11 +835,13 @@ def mont_mul_phase(dev, n=1 << 16):
         ms = cuda_ms(lambda: cuda_mul.mont_mul(df, a, b), 20)
         dev_ms = device_ms(lambda: cuda_mul.mont_mul(df, a, b), 20,
                            "mont_mul_kernel")
+        host_us = host_us_per_call(lambda: cuda_mul.mont_mul(df, a, b))
         plain_ms = cuda_ms(lambda: cuda_mul.mont_mul_plain(df, a, b), 3)
         bound_ms, bound_by = bound(3 * n * L * 4, n, "mul", L)
         res[name] = {"kernel": kernel.name, "n": n, "max_abs_err": err,
-                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by}
+                     "ms": ms, "device_ms": dev_ms, "host_us": host_us,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
         say(f"[6] {name} {res[name]}")
     return res
 
@@ -828,14 +914,14 @@ def blob_phase(dev, kernels, rng, rng_np):
           "sparse blob commitment differs from the host oracle")
 
     case = tiled_msm_case(dev, rng_np, n=kzg.BLOB_CELLS, spec=C.bls381_g1)
-    with Capture(Capture.WRAPPERS + ("point_add",)) as cap:
+    with Capture(Capture.WRAPPERS + ("point_add_planes",)) as cap:
         out["msm"] = msm_phase(pippenger._msm_scan, case)
-    check(sorted(cap.args) == sorted(cap.names), "B1-B5 recorded")
+    check(sorted(cap.calls) == sorted(cap.names), "B1-B5 recorded")
     say(f"[7] sparse blob commitment and the tiled 4,096-point BLS12-381 "
         f"MSM equal their host oracles: {out['msm']}")
     name, add = captured_add_phase(cap.args)
     say(f"[7] {name} {add}")
-    res = {name: add, **scan_kernels_phase(cap.args, "[7]")}
+    res = {name: add, **scan_kernels_phase(cap.calls, "[7]")}
     return out, res
 
 
@@ -847,7 +933,7 @@ def addk_phase(dev):
 
     from davinci_tpu_torch import curves as C
     from davinci_tpu_torch import kernels as K
-    from davinci_tpu_torch.ec import addk_exp, get_device_curve
+    from davinci_tpu_torch.ec import addk_exp, cuda_add, get_device_curve
 
     dc = get_device_curve(C.bn254_g1, dev)
     iters = 30
@@ -905,9 +991,10 @@ def addk_phase(dev):
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by}
             say(f"[8] {kernel.name} {out[kernel.name]}")
-        ms = cuda_ms(lambda: chain(dc.add, a, b), 1) / iters
-        dev_ms = device_ms(lambda: chain(dc.add, a, b), 1, "point_add_kernel")
-        say(f"[8] B1 on the same rows, a {iters}-launch chain: {{'n': {n}, "
+        b1 = lambda o, q: cuda_add.point_add_planes(dc, o, q)
+        ms = cuda_ms(lambda: chain(b1, an, bn), 1) / iters
+        dev_ms = device_ms(lambda: chain(b1, an, bn), 1, "point_add_kernel")
+        say(f"[8] B1 on the same planes, a {iters}-launch chain: {{'n': {n}, "
             f"'ms': {ms}, 'device_ms': {dev_ms and dev_ms / iters}}}")
         if n == n0:
             res = out
@@ -970,10 +1057,20 @@ def groth16_phase(dev, cs, public, kernels, stages):
         return res
 
     g16._msm_enc = timed_msm
+    for k in kernels:
+        k.launches = 0
     t0 = time.perf_counter()
     proof2 = g16.prove(pk, cs)
     out["prove_s"] = time.perf_counter() - t0
     del g16._msm_enc
+    # the steady prove's: the NTT's tables are built by the first one
+    out["steady_launches"] = {k.name: k.launches for k in kernels}
+    for k in kernels:
+        check(k.launches > 0, f"{k.name} was not launched by the steady prove")
+    say("[5] launches per prove of B1, B5 and B6, first / steady: "
+        + ", ".join(f"{name} {out['prove_launches'][name]} / "
+                    f"{out['steady_launches'][name]}"
+                    for name in ("point_add_g1", "horner_g1", "mont_mul")))
     out["stages_s"] = dict(stages.took)
     out["msm_g1_s"], out["msm_g2_s"] = msm_s["g1"], msm_s["g2"]
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
@@ -1025,6 +1122,80 @@ def g2_add_only():
     return 0
 
 
+def random_limbs(df, n, gen, below_p=True):
+    """(n, L) int32 limbs on df's device from the torch generator `gen`:
+    values below 2^(bits of p - 1) (so below p) or, with below_p false,
+    any value below R (a raw operand)."""
+    import torch
+
+    L = df.L
+    limbs = torch.randint(0, 1 << 12, (n, L), generator=gen)
+    if below_p:
+        limbs[:, -1] %= 1 << max(df.spec.p.bit_length() - 12 * (L - 1) - 1,
+                                  0)
+    return limbs.to(torch.int32).to(df.device)
+
+
+def b1_b6_only():
+    """B1 through the rows (`DeviceCurve.add`) and, where this checkout
+    has the planes entry, on planes, at 45,056 and 2^16 adds on BN254 and
+    BLS12-381 G1; B6 (`mont_mul`) at 2^16 on BN254 Fr and BLS12-381 Fp:
+    event, device and host times per call.  Copied into a checkout of
+    another commit, it times that commit's B1 and B6 at the same shapes."""
+    import torch
+
+    from davinci_tpu_torch import curves as C
+    from davinci_tpu_torch import fields as F
+    from davinci_tpu_torch.ec import cuda_add, get_device_curve
+    from davinci_tpu_torch.ff import cuda_mul, get_device_field
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    device_line()
+    build_phase([(src, limbs) for src in ("point_add", "mont_mul")
+                 for limbs in (22, 32)])
+    rng = random.Random(SEED + 9)
+    out = {"b1": {}, "b6": {}}
+    for name in ("bn254_g1", "bls381_g1"):
+        spec = getattr(C, name)
+        dc = get_device_curve(spec, dev)
+        pts, _ = random_points(dc, spec, 64, rng)
+        for n in B1_SIZES[1:]:
+            i = torch.arange(n, device=dev)
+            p = tuple(a[i % 4096] for a in pts)
+            q = tuple(torch.roll(a, 7, 0) for a in p)
+            want = cuda_add.rcb15_plain(dc, p, q)
+            check(max_err(dc.add(p, q), want) == 0, f"B1 rows on {name}")
+            run = lambda: dc.add(p, q)
+            rec = {"rows_ms": cuda_ms(run, 20),
+                   # the rows' kernel: point_add_kernel before the
+                   # planes entry, point_add_rows_kernel beside it
+                   "rows_device_ms": device_ms(run, 20, "point_add")}
+            if hasattr(cuda_add, "point_add_planes"):
+                a, b = (tuple(x.T.contiguous() for x in t) for t in (p, q))
+                run = lambda: cuda_add.point_add_planes(dc, a, b)
+                check(max_err(tuple(x.T for x in run()), want) == 0,
+                      f"B1 planes on {name}")
+                rec.update(planes_ms=cuda_ms(run, 20),
+                           planes_device_ms=device_ms(run, 20,
+                                                      "point_add_kernel"))
+            out["b1"][f"{name}@{n}"] = rec
+            say(f"[b1] {name} n={n} {rec}")
+    gen = torch.Generator().manual_seed(SEED)
+    for name in ("bn254_fr", "bls12_381_fp"):
+        df = get_device_field(getattr(F, name), dev)
+        a, b = (random_limbs(df, 1 << 16, gen) for _ in range(2))
+        run = lambda: cuda_mul.mont_mul(df, a, b)
+        check(max_err(run(), cuda_mul.mont_mul_plain(df, a, b)) == 0,
+              f"B6 on {name}")
+        out["b6"][name] = {"ms": cuda_ms(run, 20),
+                           "device_ms": device_ms(run, 20, "mont_mul_kernel"),
+                           "host_us": host_us_per_call(run)}
+        say(f"[b6] {name} {out['b6'][name]}")
+    say(json.dumps(out))
+    return 0
+
+
 def main(argv) -> int:
     import torch
 
@@ -1038,6 +1209,8 @@ def main(argv) -> int:
     sys.path.insert(0, str(ROOT))
     if argv == ["--g2-add"]:
         return g2_add_only()
+    if argv == ["--b1-b6"]:
+        return b1_b6_only()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -1047,7 +1220,6 @@ def main(argv) -> int:
     from davinci_tpu_torch import curves as C
     from davinci_tpu_torch import kernels as K
     from davinci_tpu_torch import log
-    from davinci_tpu_torch.ec import get_device_curve
     from davinci_tpu_torch.msm import pippenger
 
     dev = torch.device("cuda", 0)
@@ -1063,9 +1235,9 @@ def main(argv) -> int:
     # the blob path: every L = 32 build but G2's, which 3b's MSM drives
     kernels32 = [k for k in K.KERNELS if k.limbs == 32
                  and k not in (K.B7_L32, K.B5G2_L32)]
-    g1 = get_device_curve(C.bn254_g1, dev)
-    res = {K.B1.name: point_add_phase(K.B1, C.bn254_g1, g1, 256, rng)}
-    say(f"[2] B1 {res[K.B1.name]}")
+    b1 = {name: b1_phase(dev, name) for name in ("bn254_g1", "bls381_g1")}
+    # the kernels line: B1 at the scan path's leftover merge, Wt x COLS
+    res = {K.B1.name: b1["bn254_g1"]["planes"][B1_SIZES[1]]}
     g2_add = g2_add_phase(dev)
     # the kernels line: each build at the b2 MSM's accumulate launches
     res[K.B7.name] = g2_add["bn254_g2"][G2_SIZES[2]]
@@ -1079,10 +1251,10 @@ def main(argv) -> int:
         f"{msm_phase(pippenger._msm_fused, case)}")
     with Capture() as cap:
         scan = msm_phase(pippenger._msm_scan, case)
-    check(sorted(cap.args) == sorted(Capture.WRAPPERS), "B2-B5 recorded")
+    check(sorted(cap.calls) == sorted(Capture.WRAPPERS), "B2-B5 recorded")
     say(f"[4b] scan-path G1 MSM equal to the host oracle: {scan}")
     say(f"[4b] edge-case G1 MSM through msm: {edge_msm_phase(dev)}")
-    res.update(scan_kernels_phase(cap.args))
+    res.update(scan_kernels_phase(cap.calls))
     del case, cap
 
     stages = StageTimes()
@@ -1107,7 +1279,7 @@ def main(argv) -> int:
     addk_res, addk_launches = addk_phase(dev)
     res.update(addk_res)
 
-    launches = {**c1["prove_launches"], **blob["launches"], **addk_launches,
+    launches = {**c1["steady_launches"], **blob["launches"], **addk_launches,
                 **g2_msm["launches"]}
     say(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

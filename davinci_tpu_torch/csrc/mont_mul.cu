@@ -20,10 +20,15 @@
 // at L = 22) for 153 32-bit multiplies (8 x 9 for the product, 8 x 8 + 8
 // for the reduction, 9 low halves); at 3.35 TB/s the bytes take about
 // nine times as long as the multiplies at the card's integer rate
-// (132 SMs x 64 per clock x 1.98 GHz).  Each thread reads and
-// writes its own 88- or 128-byte row, so a warp's accesses are not
-// coalesced; a transposed (L, n) layout or a staged copy through shared
-// memory, and several elements per thread, are later work.
+// (132 SMs x 64 per clock x 1.98 GHz).  So a block of T threads moves its
+// T consecutive rows of each operand, and of the output, through shared
+// memory: consecutive threads read and write consecutive 32-bit words of
+// the tile, which is contiguous in global memory, so every access is
+// coalesced, and any 4-byte-aligned base works.  A tile row is padded to
+// L + 1 words (odd), so the threads reading their own rows out of the tile
+// hit distinct banks.  An operand with fewer rows than T (a broadcast row,
+// a short repeating table) is staged whole, once per block.  The product
+// itself is field.cuh's CIOS, unchanged.
 
 #include <cstring>
 
@@ -32,30 +37,60 @@
 namespace {
 
 constexpr int LIMBS = DAVINCI_L;
-constexpr int THREADS = 128;
+constexpr int T = 128;            // elements (threads) per block
+constexpr int STRIDE = LIMBS + 1;      // words per tile row
+
+// Stage the rows of an (rows, L) operand that elements first .. first +
+// count - 1 read (element i reads row i % rows) into the tile s; returns
+// the tile row that element first + t reads.  With rows >= T the tile
+// holds the count rows from first % rows on, wrapping at most once; with
+// fewer, it holds every row.
+__device__ __forceinline__ int stage(int32_t* s, const int32_t* __restrict__ src,
+                                     long long rows, long long first,
+                                     int count, int t) {
+  const long long r0 = first < rows ? first : first % rows;
+  if (rows >= T) {
+    for (int w = t; w < count * LIMBS; w += T) {
+      const int e = w / LIMBS, j = w - e * LIMBS;
+      long long r = r0 + e;
+      if (r >= rows) r -= rows;
+      s[e * STRIDE + j] = src[r * LIMBS + j];
+    }
+    return t;
+  }
+  const int nr = (int)rows;
+  for (int w = t; w < nr * LIMBS; w += T) {
+    const int e = w / LIMBS, j = w - e * LIMBS;
+    s[e * STRIDE + j] = src[w];
+  }
+  return ((int)r0 + t) % nr;  // r0 < nr < T
+}
 
 template <int L>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(T)
     mont_mul_kernel(const int32_t* __restrict__ a, long long na,
                     const int32_t* __restrict__ b, long long nb,
                     int32_t* __restrict__ out, const Consts<L> c,
                     long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  __shared__ int32_t sa[T * STRIDE], sb[T * STRIDE];
   constexpr int N = Radix<L>::N, NR = Radix<L>::NR;
-  const long long ia = na == n ? i : i % na;
-  const long long ib = nb == n ? i : i % nb;
+  const int t = threadIdx.x;
+  const long long first = (long long)blockIdx.x * T;
+  const int count = (int)(n - first < T ? n - first : T);
+  const int ra = stage(sa, a, na, first, count, t);
+  const int rb = stage(sb, b, nb, first, count, t);
+  __syncthreads();
   uint32_t x[NR], y[NR];
-  load_words<L>(x, a + ia * L);
-  load_words<L>(y, b + ib * L);
+  load_words<L>(x, sa + ra * STRIDE);
+  load_words<L>(y, sb + rb * STRIDE);
   if constexpr (NR > N) {
     // a raw operand at or above 2^(32 N) rides the extra word: put it first
     if (y[N] != 0) {
 #pragma unroll
       for (int k = 0; k < NR; k++) {
-        const uint32_t t = x[k];
+        const uint32_t v = x[k];
         x[k] = y[k];
-        y[k] = t;
+        y[k] = v;
       }
     }
   }
@@ -63,7 +98,14 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int k = 0; k < N; k++) yb.w[k] = y[k];
   mont_mul(r, x, yb, c);
-  store(out + i * L, r);
+  __syncthreads();  // every thread has read its rows: sa takes the output
+  if (t < count) store(sa + t * STRIDE, r);
+  __syncthreads();
+  int32_t* dst = out + first * LIMBS;
+  for (int w = t; w < count * LIMBS; w += T) {
+    const int e = w / LIMBS;
+    dst[w] = sa[e * STRIDE + (w - e * LIMBS)];
+  }
 }
 
 }  // namespace
@@ -77,8 +119,8 @@ extern "C" int davinci_mont_mul(const int32_t* a, const int32_t* b,
   if (n <= 0) return 0;
   Consts<LIMBS> c;
   std::memcpy(&c, consts, sizeof(c));
-  const long long blocks = (n + THREADS - 1) / THREADS;
-  mont_mul_kernel<LIMBS><<<(unsigned)blocks, THREADS, 0,
-                           (cudaStream_t)stream>>>(a, na, b, nb, out, c, n);
+  const long long blocks = (n + T - 1) / T;
+  mont_mul_kernel<LIMBS><<<(unsigned)blocks, T, 0, (cudaStream_t)stream>>>(
+      a, na, b, nb, out, c, n);
   return (int)cudaGetLastError();
 }

@@ -7,14 +7,26 @@
 // (B1, G1) and ::_point_add2_kernel (B7, G2, Karatsuba Fp2 mul).
 //
 // Boundary: each coordinate is L int32 12-bit limbs (G2: 2 x L, the c0
-// limbs then the c1 limbs), row-major (N, L) / (N, 2, L), in Montgomery
-// form with the reference's radix R = 2^(12 L).  The field arithmetic and
-// the RCB15 formula are field.cuh's; outputs are canonical, so both kernels
-// equal the plain PyTorch composition limb for limb.
+// limbs then the c1 limbs) in Montgomery form with the reference's radix
+// R = 2^(12 L): B1 takes limb-major (L, n) planes or row-major (n, L)
+// rows, B7 row-major (n, 2, L) rows.  The field arithmetic and the RCB15 formula are field.cuh's;
+// outputs are canonical, so both kernels equal the plain PyTorch
+// composition limb for limb.
 //
-// B1 gives one thread to each point: integer multiply throughput (a G1 add
-// is 14 field muls of N^2 32x32->64 products each plus their reductions)
-// and registers bound it (108 at L = 22, 248 at L = 32).
+// B1 works on limb-major planes: each coordinate is (L, n), limb j of add i
+// at j * n + i, the layout of the reference kernel's (L, TILE_N) blocks and
+// of the point-add experiment (csrc/addk.cu).  One thread per add, so a
+// warp's load or store of one limb covers 32 consecutive words: every
+// access is coalesced.  The strict formula of field.cuh (`rcb15`, every
+// value canonical) with the field's Consts passed by value, which the card
+// keeps in its constant bank.  What bounds it on the card: a complete add
+// moves 9 coordinates of 4 L bytes and does 14 field products of about
+// 2 N^2 word products each; the bytes bound it at both L (3.35 TB/s), the
+// multiplies at the card's integer rate take half their time at L = 22
+// and three quarters at L = 32.  Row callers (DeviceCurve.add) get the
+// same body built for rows (point_add_rows_kernel): each coordinate's
+// block of rows is staged through shared memory, so its accesses are
+// coalesced too.
 //
 // B7 gives each G2 add a group of six threads of one warp (group6.cuh's
 // add6_g2).  RCB15's 14 Fp2 products fall into three levels of independent
@@ -45,31 +57,101 @@ constexpr int N = F::N;
 
 // -- B1 ----------------------------------------------------------------------
 
-__global__ void point_add_kernel(const int32_t* __restrict__ x1,
-                                 const int32_t* __restrict__ y1,
-                                 const int32_t* __restrict__ z1,
-                                 const int32_t* __restrict__ x2,
-                                 const int32_t* __restrict__ y2,
-                                 const int32_t* __restrict__ z2,
-                                 int32_t* __restrict__ x3,
-                                 int32_t* __restrict__ y3,
-                                 int32_t* __restrict__ z3, const Cst c,
-                                 long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long o = i * LIMBS;
+constexpr int B1_THREADS = 128;
+constexpr int B1_STRIDE = LIMBS + 1;  // words per row of a row tile
+
+// One coordinate of this thread's add, element first + t.  On planes it
+// is read in place (limb j at j * n).  Rows are staged through the
+// block's tile s: the block's count rows are count * L consecutive words,
+// read by consecutive threads, each row padded to L + 1 words so that a
+// thread reading its own row out of the tile hits distinct banks.
+template <bool ROWS>
+__device__ __forceinline__ void load_coord(F& x, const int32_t* src,
+                                           int32_t* s, long long first,
+                                           int count, int t, long long n) {
+  if constexpr (ROWS) {
+    __syncthreads();  // the tile's last readers are done
+    const int32_t* g = src + first * LIMBS;
+    for (int w = t; w < count * LIMBS; w += B1_THREADS) {
+      const int e = w / LIMBS;
+      s[e * B1_STRIDE + (w - e * LIMBS)] = g[w];
+    }
+    __syncthreads();
+    load(x, s + t * B1_STRIDE);
+  } else {
+    load(x, src + first + t, n);
+  }
+}
+
+template <bool ROWS>
+__device__ __forceinline__ void store_coord(int32_t* dst, const F& x,
+                                            int32_t* s, long long first,
+                                            int count, int t, long long n) {
+  if constexpr (ROWS) {
+    __syncthreads();
+    if (t < count) store(s + t * B1_STRIDE, x);
+    __syncthreads();
+    int32_t* g = dst + first * LIMBS;
+    for (int w = t; w < count * LIMBS; w += B1_THREADS) {
+      const int e = w / LIMBS;
+      g[w] = s[e * B1_STRIDE + (w - e * LIMBS)];
+    }
+  } else {
+    store(dst + first + t, x, n);
+  }
+}
+
+// The body of both B1 entries: planes (s unused) or rows (s the block's
+// tile, B1_THREADS rows).  A rows thread past the end computes on a stale
+// tile row and stores nothing; it stays for the block's barriers.
+template <bool ROWS>
+__device__ __forceinline__ void add_g1(
+    const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
+    const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
+    const int32_t* __restrict__ y2, const int32_t* __restrict__ z2,
+    int32_t* __restrict__ x3, int32_t* __restrict__ y3,
+    int32_t* __restrict__ z3, const Cst& c, long long n, int32_t* s) {
+  const int t = threadIdx.x;
+  const long long first = (long long)blockIdx.x * B1_THREADS;
+  const int count = (int)(n - first < B1_THREADS ? n - first : B1_THREADS);
+  if (!ROWS && t >= count) return;
   F X1, Y1, Z1, X2, Y2, Z2, b3, X3, Y3, Z3;
-  load(X1, x1 + o);
-  load(Y1, y1 + o);
-  load(Z1, z1 + o);
-  load(X2, x2 + o);
-  load(Y2, y2 + o);
-  load(Z2, z2 + o);
+  load_coord<ROWS>(X1, x1, s, first, count, t, n);
+  load_coord<ROWS>(Y1, y1, s, first, count, t, n);
+  load_coord<ROWS>(Z1, z1, s, first, count, t, n);
+  load_coord<ROWS>(X2, x2, s, first, count, t, n);
+  load_coord<ROWS>(Y2, y2, s, first, count, t, n);
+  load_coord<ROWS>(Z2, z2, s, first, count, t, n);
   set_b3(b3, c);
   rcb15(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, Z2, b3, c);
-  store(x3 + o, X3);
-  store(y3 + o, Y3);
-  store(z3 + o, Z3);
+  store_coord<ROWS>(x3, X3, s, first, count, t, n);
+  store_coord<ROWS>(y3, Y3, s, first, count, t, n);
+  store_coord<ROWS>(z3, Z3, s, first, count, t, n);
+}
+
+__global__ void __launch_bounds__(B1_THREADS)
+    point_add_kernel(const int32_t* __restrict__ x1,
+                     const int32_t* __restrict__ y1,
+                     const int32_t* __restrict__ z1,
+                     const int32_t* __restrict__ x2,
+                     const int32_t* __restrict__ y2,
+                     const int32_t* __restrict__ z2, int32_t* __restrict__ x3,
+                     int32_t* __restrict__ y3, int32_t* __restrict__ z3,
+                     const Cst c, long long n) {
+  add_g1<false>(x1, y1, z1, x2, y2, z2, x3, y3, z3, c, n, nullptr);
+}
+
+__global__ void __launch_bounds__(B1_THREADS)
+    point_add_rows_kernel(const int32_t* __restrict__ x1,
+                          const int32_t* __restrict__ y1,
+                          const int32_t* __restrict__ z1,
+                          const int32_t* __restrict__ x2,
+                          const int32_t* __restrict__ y2,
+                          const int32_t* __restrict__ z2,
+                          int32_t* __restrict__ x3, int32_t* __restrict__ y3,
+                          int32_t* __restrict__ z3, const Cst c, long long n) {
+  __shared__ int32_t tile[B1_THREADS * B1_STRIDE];
+  add_g1<true>(x1, y1, z1, x2, y2, z2, x3, y3, z3, c, n, tile);
 }
 
 // -- B7 ----------------------------------------------------------------------
@@ -133,17 +215,19 @@ Cst consts_of(const uint32_t* words) {
 
 }  // namespace
 
-// consts: the uint32 words of struct Consts (field.cuh).  Returns the launch's
-// cudaGetLastError() code (0 on success).
+// consts: the uint32 words of struct Consts (field.cuh).  B1's nine
+// arguments are (L, n) planes, or (n, L) rows where `rows` is nonzero;
+// B7's are (n, 2, L) rows.  Returns the launch's cudaGetLastError() code
+// (0 on success).
 extern "C" int davinci_point_add_g1(const int32_t* x1, const int32_t* y1,
                                     const int32_t* z1, const int32_t* x2,
                                     const int32_t* y2, const int32_t* z2,
                                     int32_t* x3, int32_t* y3, int32_t* z3,
                                     const uint32_t* consts, long long n,
-                                    void* stream) {
-  const int threads = 128;
-  const long long blocks = (n + threads - 1) / threads;
-  point_add_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+                                    long long rows, void* stream) {
+  const long long blocks = (n + B1_THREADS - 1) / B1_THREADS;
+  auto kernel = rows ? point_add_rows_kernel : point_add_kernel;
+  kernel<<<(unsigned)blocks, B1_THREADS, 0, (cudaStream_t)stream>>>(
       x1, y1, z1, x2, y2, z2, x3, y3, z3, consts_of(consts), n);
   return (int)cudaGetLastError();
 }

@@ -3,11 +3,14 @@ CUDA kernels B1 (G1) and B7 (G2) and, beside them, their plain PyTorch
 version.  Counterpart of `davinci_tpu/ec/pallas_add.py`.
 
 `point_add` / `point_add_fp2` take (X, Y, Z) tuples of Montgomery limb
-tensors, (..., L) or (..., 2, L), broadcast against each other.  On a CPU
+rows, (..., L) or (..., 2, L), broadcast against each other;
+`point_add_planes` takes G1 coordinates as limb-major planes (L, ...), the
+scan path's layout and B1's own (limb j of point i at [j, i]).  On a CPU
 tensor they run `rcb15_plain`; on a CUDA tensor they launch the kernel of
 `csrc/point_add.cu` built for the field's limb count (L = 22 or 32) or
-raise.  Outputs are canonical limbs either way, so
-kernel and plain version agree limb for limb.  `rcb15_mixed_plain` is
+raise: B1 on planes or on G1 rows (one body, built for each layout), B7
+on rows.  Outputs are canonical limbs either way, so kernel and plain
+version agree limb for limb.  `rcb15_mixed_plain` is
 the plain version of the mixed addition (Algorithm 8) that the bucket-scan
 kernel B2 runs (`csrc/field.cuh`).
 """
@@ -71,8 +74,9 @@ def rcb15_mixed_plain(curve, p, q):
 
 
 def point_add(curve, p, q):
-    """G1 complete addition: kernel B1 on CUDA, plain on CPU."""
-    return _dispatch(B1, curve, p, q)
+    """G1 complete addition on rows: kernel B1's row build on CUDA, plain
+    on CPU."""
+    return _dispatch(B1, curve, p, q, 1)
 
 
 def point_add_fp2(curve, p, q):
@@ -80,13 +84,37 @@ def point_add_fp2(curve, p, q):
     return _dispatch(B7, curve, p, q)
 
 
-def _dispatch(kernel, curve, p, q):
+def point_add_planes(curve, p, q):
+    """G1 complete addition on limb-major planes: (X, Y, Z) of (L, ...)
+    tensors, all of one shape -> contiguous (L, ...) planes.  Kernel B1 on
+    CUDA; on CPU the plain add on the transposed rows."""
+    device = check_tensors(B1, (*p, *q))
+    shape = p[0].shape
+    if any(t.shape != shape for t in (*p, *q)) or shape[:1] != curve._eshape:
+        raise ValueError(f"{B1.name}: planes shaped "
+                         f"{[tuple(t.shape) for t in (*p, *q)]} on "
+                         f"{curve.spec.name}")
+    L = shape[0]
+    flat = [t.reshape(L, -1) for t in (*p, *q)]
+    if device.type == "cpu":
+        out = rcb15_plain(curve, tuple(a.T for a in flat[:3]),
+                          tuple(a.T for a in flat[3:]))
+        return tuple(a.T.contiguous().reshape(shape) for a in out)
+    flat = [t.contiguous() for t in flat]
+    n = flat[0].shape[1]
+    out = [torch.empty_like(flat[0]) for _ in range(3)]
+    if n:
+        B1.at(L).launch(device, (*flat, *out), _consts(curve), (n, 0))
+    return tuple(o.reshape(shape) for o in out)
+
+
+def _dispatch(kernel, curve, p, q, *ints):
     device = p[0].device
     if device.type == "cpu":
         return rcb15_plain(curve, p, q)
     if device.type != "cuda":
         raise ValueError(f"{kernel.name}: unsupported device {device}")
-    return _launch(kernel, curve, p, q)
+    return _launch(kernel, curve, p, q, ints)
 
 
 def _int_of(limbs: torch.Tensor) -> int:
@@ -123,7 +151,9 @@ def b3_small(p, L, b3_mont):
     return v if v < B3_SMALL_MAX else 0
 
 
-def _launch(kernel, curve, p, q):
+def _launch(kernel, curve, p, q, ints):
+    """Launch `kernel` on the broadcast rows of p and q; `ints` follow the
+    row count (B1: 1, its row build)."""
     device = check_tensors(kernel, (*p, *q))
     tensors = torch.broadcast_tensors(*p, *q)
     shape = tensors[0].shape
@@ -135,5 +165,6 @@ def _launch(kernel, curve, p, q):
     n = flat[0].shape[0]
     out = [torch.empty_like(flat[0]) for _ in range(3)]
     if n:
-        kernel.at(curve.df.L).launch(device, (*flat, *out), consts, (n,))
+        kernel.at(curve.df.L).launch(device, (*flat, *out), consts,
+                                     (n, *ints))
     return tuple(o.reshape(shape) for o in out)

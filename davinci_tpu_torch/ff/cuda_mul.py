@@ -48,13 +48,47 @@ def _rows(x, shape, L):
     return x.reshape(tuple(batch) + (L,)).contiguous().reshape(-1, L)
 
 
+def _row_count(x, L):
+    """The row count of `x` as a contiguous (rows, L) or (L,) operand, else
+    None."""
+    if x.dim() not in (1, 2) or x.shape[-1] != L or not x.is_contiguous():
+        return None
+    return x.shape[0] if x.dim() == 2 else 1
+
+
+def direct_rows(a, b, L):
+    """(na, nb, n, out shape) where `a` and `b` go to B6 as they are: both
+    contiguous rows, (n, L), (1, L) or (L,), with equal row counts or
+    one of them 1 (element i reads row i % na of a and i % nb of b; an
+    empty operand makes n 0, as broadcasting does); None where they must
+    be broadcast into rows first."""
+    na, nb = _row_count(a, L), _row_count(b, L)
+    if na is None or nb is None or not (na == nb or na == 1 or nb == 1):
+        return None
+    n = max(na, nb) if na and nb else 0
+    return na, nb, n, (n, L) if a.dim() == 2 or b.dim() == 2 else (L,)
+
+
 def mont_mul(df, a, b):
-    """REDC(a * b): kernel B6 on CUDA tensors, plain on CPU tensors."""
+    """REDC(a * b): kernel B6 on CUDA tensors, plain on CPU tensors.
+
+    Operands that are already contiguous rows (`direct_rows`) go to the
+    kernel as they are; others are broadcast into rows first."""
+    L = df.L
+    if a.is_cuda and a.dtype == b.dtype == torch.int32 \
+            and b.get_device() == a.get_device():
+        plan = direct_rows(a, b, L)
+        if plan is not None:
+            na, nb, n, shape = plan
+            out = torch.empty(shape, dtype=torch.int32, device=a.device)
+            if n:
+                B6.at(L).launch(a.device, (a, b, out), consts_for(df),
+                                (na, nb, n))
+            return out
     device = check_tensors(B6, (a, b))
     if device.type == "cpu":
         return mont_mul_plain(df, a, b)
     consts = consts_for(df)
-    L = df.L
     if a.shape[-1] != L or b.shape[-1] != L:
         raise ValueError(f"{B6.name}: limb axes {a.shape[-1]}, {b.shape[-1]}"
                          f" for L={L}")

@@ -62,6 +62,8 @@ class Kernel:
         return k
 
     def _fn(self):
+        """The C function, loaded (and built) at the first launch, with
+        its argument types set once."""
         if self._cfn is None:
             lib = cuda_build.load(Path(self.source).stem, self.limbs)
             fn = getattr(lib, self.symbol)
@@ -77,15 +79,23 @@ class Kernel:
 
     def launch(self, device, tensors, consts, ints):
         """Launch on `device`'s current stream: `tensors` are the CUDA
-        tensors the kernel reads and writes, in the C function's order."""
+        tensors the kernel reads and writes, in the C function's order.
+        A device context is entered only when `device` is not the
+        current device."""
         if len(tensors) != self.n_ptr or len(ints) != self.n_int:
             raise TypeError(f"{self.name}: wrong number of arguments")
-        fn = self._fn()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = fn(*(ctypes.c_void_p(t.data_ptr()) for t in tensors), consts,
-                    *(ctypes.c_longlong(int(v)) for v in ints),
-                    ctypes.c_void_p(stream))
+        fn = self._cfn or self._fn()
+        ptrs = [t.data_ptr() for t in tensors]
+        index = device.index  # a tensor's device: always indexed
+        # the argument types convert the ints; the raw stream lookup is the
+        # one Triton's launcher makes
+        if index == torch.cuda.current_device():
+            rc = fn(*ptrs, consts, *ints,
+                    torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                rc = fn(*ptrs, consts, *ints,
+                        torch._C._cuda_getCurrentRawStream(index))
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA launch error {rc}")
         self.launches += 1
@@ -138,7 +148,7 @@ _ADDK = "davinci_tpu_torch/csrc/addk.cu"
 _REF = "davinci_tpu/msm/bucket_kernel.py"
 
 B1 = Kernel("point_add_g1", "davinci_point_add_g1", _POINT_ADD,
-            "davinci_tpu/ec/pallas_add.py:141", 9, 1)
+            "davinci_tpu/ec/pallas_add.py:141", 9, 2)
 B2 = Kernel("bucket_scan_g1", "davinci_bucket_scan_g1", _BUCKET,
             f"{_REF}:46", 3, 3)
 B3 = Kernel("bucket_reduce_g1", "davinci_bucket_reduce_g1", _BUCKET,

@@ -8,8 +8,9 @@ the reference does:
     are recoded to signed digits in [-2048, 2048] (half the buckets), the
     points packed into 16-bit planes, and kernels B2-B5 of
     `bucket_kernel` do the bucket scan, the bucket reduce, the cross-lane
-    suffix reduce and Horner; the leftover merge and the combine's
-    doublings are point adds (B1) on the transposed (L, ...) layout.
+    suffix reduce and Horner; the leftover merge is point adds (B1) on
+    the transposed (L, ...) layout, B1's own, and the combine's doubling
+    chain one more launch of B5.
   * G2 on CUDA, `_msm_fused`: the scan composition the reference takes
     with its kernels off (`pippenger.py:742-751`), on `DeviceCurve.add`
     (B7).  Window size == LIMB_BITS (12): the j-th raw scalar limb is
@@ -30,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from davinci_tpu_torch.ec import cuda_add
 from davinci_tpu_torch.fields import LIMB_BITS
 from davinci_tpu_torch.msm import bucket_kernel
 
@@ -241,19 +243,14 @@ def _horner(curve, sums, W):
 # ---------------------------------------------------------------------------
 # Transposed (L, ...) layout: the scan path.  Limbs lead, the batch
 # (windows x buckets or columns) follows, as in the bucket-scan kernel's
-# output; the point adds move the limb axis last for B1 and back.
+# output and B1's planes.
 # ---------------------------------------------------------------------------
 
 
 def _t_add(curve, p, q):
-    """Complete addition on transposed (L, ...) coordinates: the limb axis
-    goes last (contiguous rows for B1 on CUDA, the plain add on CPU) and
-    comes back."""
-    shape = p[0].shape
-    L = shape[0]
-    rows = lambda t: tuple(a.reshape(L, -1).T.contiguous() for a in t)
-    out = curve.add(rows(p), rows(q))
-    return tuple(a.T.reshape(shape) for a in out)
+    """Complete addition on transposed (L, ...) coordinates: B1 on the
+    planes as they are on CUDA, the plain add on CPU."""
+    return cuda_add.point_add_planes(curve, p, q)
 
 
 def _t_double(curve, p):
@@ -338,7 +335,10 @@ def _reduce_combine_t(curve, A, B, shifted: bool = False):
 
     One suffix-reduce launch (B4) over the lanes [A | B] gives sum_c c A_c
     (the weighted sum of the A half) and sum_c B_c (the plain sum of the B
-    half); the log2(C) doublings and the final adds are point adds."""
+    half).  C sum_c B_c + sum_c c A_c is a Horner step of two windows,
+    wbits = log2(C): one launch of B5 on the window-major [sum_c c A_c |
+    sum_c B_c] makes the log2(C) doublings and the add in the order of the
+    reference's doubling chain; the shifted sum is one point add."""
     L, Wt, Cw = A[0].shape
     nbits = Cw.bit_length() - 1  # Cw is a power of two
 
@@ -347,11 +347,11 @@ def _reduce_combine_t(curve, A, B, shifted: bool = False):
 
     s = torch.cat([prep(A), prep(B)], dim=2).contiguous()  # (Cw, 3L, 2Wt)
     A2, B2 = bucket_kernel.suffix_reduce_kernel(curve, s)  # (3L, 2Wt) each
-    wA = tuple(B2[c * L:(c + 1) * L, :Wt] for c in range(3))
-    CB = tuple(A2[c * L:(c + 1) * L, Wt:] for c in range(3))
-    for _ in range(nbits):
-        CB = _t_double(curve, CB)
-    out = _t_add(curve, CB, wA)
+    # window 0: sum_c c A_c, window 1: sum_c B_c, each (L, Wt)
+    sums = tuple(torch.cat([B2[c * L:(c + 1) * L, :Wt],
+                            A2[c * L:(c + 1) * L, Wt:]], dim=1)
+                 for c in range(3))
+    out = bucket_kernel.horner_kernel(curve, sums, 2, nbits)
     if shifted:  # + sum_c A_c: slot i weighs i + 1 = (k C + c) + 1
         out = _t_add(curve, out, tuple(A2[c * L:(c + 1) * L, :Wt]
                                        for c in range(3)))

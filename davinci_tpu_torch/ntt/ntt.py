@@ -45,6 +45,7 @@ class DeviceNTT:
         self.device = torch.device(device)
         self.df = get_device_field(spec, self.device)
         self._tables = {}
+        self._powers = {}  # power_table's results by (g, n)
 
     def _roots(self, logn: int):
         """(omega, omega_inv, n_inv) as host ints for a 2^logn domain."""
@@ -62,14 +63,22 @@ class DeviceNTT:
 
     def power_table(self, g: int, n: int) -> torch.Tensor:
         """[1, g, g^2, ..., g^(n-1)] as (n, L) Montgomery limbs, built on
-        the device with log2(n) batched muls."""
-        df = self.df
-        p = torch.stack([df.one_mont, df.encode_scalar(g)])
-        cur = g * g % self.spec.p
-        while p.shape[0] < n:
-            p = torch.cat([p, df.mul(p, df.encode_scalar(cur)[None, :])])
-            cur = cur * cur % self.spec.p
-        return p[:n]
+        the device with log2(n) batched muls once per (g, n) and kept: the
+        twiddles and coset scales are constants of the domain, so every
+        transform after the first reuses them (callers never write into
+        a table).  The reference rebuilds them per transform, with the
+        same limbs."""
+        key = (g % self.spec.p, n)
+        table = self._powers.get(key)
+        if table is None:
+            df = self.df
+            p = torch.stack([df.one_mont, df.encode_scalar(g)])
+            cur = g * g % self.spec.p
+            while p.shape[0] < n:
+                p = torch.cat([p, df.mul(p, df.encode_scalar(cur)[None, :])])
+                cur = cur * cur % self.spec.p
+            table = self._powers[key] = p[:n]
+        return table
 
     def _butterflies(self, x: torch.Tensor, wpow, n: int) -> torch.Tensor:
         """Constant-geometry Stockham DIF stages: natural order in/out.

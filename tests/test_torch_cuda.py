@@ -1,8 +1,10 @@
 """davinci_tpu_torch's CUDA kernels on the card (skipped without one).
 
-The hand-written kernels B1 (G1 point add), B7 (G2 point add), the scan
+The hand-written kernels B1 (G1 point add, on limb-major planes and
+through the row wrapper), B7 (G2 point add), the scan
 path's B2-B5 (bucket scan, bucket reduce, suffix reduce, Horner), B5's
-G2 build (the fused route's Horner) and B6 (Montgomery product) are held
+G2 build (the fused route's Horner) and B6 (Montgomery product, at
+block-tile edges, on broadcast, repeating and raw operands) are held
 limb for limb against their plain PyTorch versions on the same CUDA
 tensors, each launch counted once, at L = 22 and, for B1, B2, B4, B5,
 B6 and B7, at L = 32 (BLS12-381, and BLS12-377's G2, whose Fp2 has
@@ -85,6 +87,81 @@ def test_kernel_rejects_wrong_dtype(dev):
     P = tuple(a.to(torch.int64) for a in dc.identity((4,)))
     with pytest.raises(TypeError):
         dc.add(P, P)
+
+
+def _near_p_g1(dc, hosts):
+    """The host points rescaled projectively, (l x, l y, l), so that Z, X
+    or Y is p - 1 in Montgomery form (l = -R^-1, -R^-1 / x, -R^-1 / y)."""
+    p = dc.spec.field_spec.p
+    Rinv = pow(1 << (12 * dc.df.L), -1, p)
+
+    def rescaled(scale):
+        lams = [-Rinv * scale(pt) % p for pt in hosts]
+        return tuple(dc.df.encode([lam * v % p for lam, v in zip(lams, vals)])
+                     for vals in ([pt.x.v for pt in hosts],
+                                  [pt.y.v for pt in hosts], [1] * len(hosts)))
+
+    return (rescaled(lambda pt: 1), rescaled(lambda pt: pow(pt.x.v, -1, p)),
+            rescaled(lambda pt: pow(pt.y.v, -1, p)))
+
+
+def _g1_hard_cases(dc, hosts):
+    """O + B, B + O, B + B, B + (-B), O + O, then sums of points near
+    p - 1, two representations of one point, and P + (-P) among them."""
+    base = dc.encode_points(hosts)
+    ident = dc.identity((len(hosts),))
+    nz, nx, ny = _near_p_g1(dc, hosts)
+    roll = lambda pt: tuple(torch.roll(c, 3, 0) for c in pt)
+    lhs = (ident, base, base, base, ident, nz, nx, ny, nz, nx)
+    rhs = (base, ident, base, dc.neg(base), ident, roll(nx), roll(ny),
+           roll(nz), nx, dc.neg(ny))
+    cat = lambda pts: tuple(torch.cat([pt[c] for pt in pts]) for c in range(3))
+    return cat(lhs), cat(rhs)
+
+
+def _planes(t):
+    return tuple(a.T.contiguous() for a in t)
+
+
+@pytest.mark.parametrize("n", [1, 22, 45063])
+@pytest.mark.parametrize("name", ["bn254_g1", "bls381_g1"])
+def test_b1_planes_and_rows_match_plain(dev, name, n):
+    """B1 on (L, n) planes and through the row wrapper: n sums of random
+    points (ending inside a block at 1, 22 and 45,063), then the edge and
+    near-p cases; one launch each."""
+    spec = getattr(C, name)
+    dc = get_device_curve(spec, dev)
+    kernel = K.B1.at(dc.df.L)
+    r = random.Random(16)
+    hosts = [spec.gen.mul(r.randrange(1, spec.r)) for _ in range(16)]
+    base = dc.encode_points(hosts)
+    i = torch.arange(n, device=dev)
+    A = cuda_add.rcb15_plain(dc, tuple(a[i % 16] for a in base),
+                             tuple(a[(i // 16) % 16] for a in base))
+    B = tuple(torch.roll(a, 5, 0) for a in A)
+    for P, Q in ((A, B), _g1_hard_cases(dc, hosts)):
+        want = cuda_add.rcb15_plain(dc, P, Q)
+        _equal_once(kernel, lambda: dc.add(P, Q), lambda: want)
+        _equal_once(kernel,
+                    lambda: cuda_add.point_add_planes(dc, _planes(P),
+                                                      _planes(Q)),
+                    lambda: _planes(want))
+
+
+def test_b1_planes_take_the_scan_layout(dev):
+    """(L, Wt, cols) planes, and views of a wider array (the combine's
+    slices), as the scan path passes them."""
+    dc = get_device_curve(C.bn254_g1, dev)
+    P = _projective(dc, 2 * 3 * 40, 17)
+    wide = tuple(a.T.reshape(22, 6, 40) for a in P)
+    p = tuple(a[:, :3] for a in wide)
+    q = tuple(a[:, 3:] for a in wide)
+    got = cuda_add.point_add_planes(dc, p, q)
+    rows = lambda t: tuple(a.reshape(22, -1).T for a in t)
+    want = cuda_add.rcb15_plain(dc, rows(p), rows(q))
+    for g, w in zip(got, want):
+        assert g.shape == (22, 3, 40) and g.is_contiguous()
+        assert torch.equal(g.reshape(22, -1).T, w)
 
 
 @pytest.mark.parametrize("name",
@@ -303,7 +380,9 @@ def test_g2_msm_combines_windows_in_one_launch(dev, name):
 
 def test_scan_msm_launches_every_kernel(dev):
     """`msm` of a G1 set on the card takes the scan path: one launch each
-    of B2-B5 and the result equals the host sum."""
+    of B2-B4, two of B5 (the combine's doubling chain and Horner) and 13
+    of B1 (11 log-steps and one merge of the leftovers, the shifted sum)
+    for one window tile, and the result equals the host sum."""
     spec = C.bn254_g1
     dc = get_device_curve(spec, dev)
     r = random.Random(10)
@@ -312,11 +391,14 @@ def test_scan_msm_launches_every_kernel(dev):
     base.append(spec.infinity())
     scalars = [r.randrange(spec.r) for _ in range(n)]
     scalars[:3] = [0, 1, spec.r - 1]
-    before = [k.launches for k in (K.B2, K.B3, K.B4, K.B5)]
+    kernels = (K.B1, K.B2, K.B3, K.B4, K.B5)
+    before = [k.launches for k in kernels]
     out = msm(dc, dc.encode_points([base[i % 8] for i in range(n)]),
               torch.as_tensor(scalars_to_limbs(spec, scalars), device=dev))
     got = dc.decode_points(tuple(a[None] for a in out))[0]
-    assert [k.launches for k in (K.B2, K.B3, K.B4, K.B5)] == [b + 1 for b in before]
+    steps = pp.COLS.bit_length() - 1
+    assert [k.launches - b for k, b in zip(kernels, before)] == [
+        steps + 2, 1, 1, 1, 2]
     want = spec.infinity()
     for i, b in enumerate(base):
         want = want.add(b.mul(sum(scalars[i::8]) % spec.r))
@@ -350,6 +432,49 @@ def test_mont_mul_matches_plain(dev, name):
                     lambda: cuda_mul.mont_mul_plain(df, x, y))
     assert df.decode(df.mul(a, b)) == [x * y % p for x, y in zip(xs, ys)]
     assert df.decode(df.to_mont(c)) == [v % p for v in raw]
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, (1 << 16) + 5])
+@pytest.mark.parametrize("name", ["bn254_fr", "bls12_381_fp"])
+def test_mont_mul_tiles(dev, name, n):
+    """B6's block tiles of 128 rows: counts that end inside a block, a
+    broadcast row on either side (as (1, L) and as (L,)), repeating rows,
+    a raw operand on either side and a view at an odd row offset."""
+    spec = getattr(F, name)
+    df = get_device_field(spec, dev)
+    kernel = K.B6.at(df.L)
+    L = df.L
+    g = _gen(18)
+    top = spec.p.bit_length() - 12 * (L - 1) - 1  # limbs of a value < p
+    limbs = torch.randint(0, 1 << 12, (n + 1, L), generator=g)
+    limbs[:, -1] %= 1 << max(top, 0)
+    a_wide = limbs.to(torch.int32).to(dev)
+    a = a_wide[1:]  # an odd row offset: 4 L bytes past the allocation
+    b = torch.randint(0, 1 << 12, (n, L), generator=g)
+    b[:, -1] %= 1 << max(top, 0)
+    b = b.to(torch.int32).to(dev)
+    raw = torch.randint(0, 1 << 12, (n, L), generator=g).to(torch.int32)
+    raw = raw.to(dev)  # any value below R
+    rep = torch.stack([a, b, a]).contiguous()  # (3, n, L) against (n, L)
+    cases = [(a, b), (a, b[:1]), (a[:1], b), (a, b[0]), (b[0], a),
+             (raw, b), (b, raw), (rep, b), (b, rep), (raw[:1], b)]
+    for x, y in cases:
+        _equal_once(kernel, lambda: cuda_mul.mont_mul(df, x, y),
+                    lambda: cuda_mul.mont_mul_plain(df, x, y))
+
+
+@pytest.mark.parametrize("first", [True, False])
+def test_mont_mul_empty_operand_launches_nothing(dev, first):
+    """(0, L) rows against a (1, L) row, on either side: an empty (0, L)
+    product and no launch."""
+    df = get_device_field(F.bn254_fr, dev)
+    a = df.one_mont[None].repeat(2, 1)
+    x, y = (a[:0], a[:1]) if first else (a[:1], a[:0])
+    before = K.B6.launches
+    out = cuda_mul.mont_mul(df, x, y)
+    torch.cuda.synchronize()
+    assert out.shape == (0, df.L) and out.is_cuda
+    assert K.B6.launches == before
 
 
 def test_mont_mul_refuses_unsupported_fields(dev):
