@@ -36,7 +36,8 @@ Phases, one line of output each (any failure raises and exits non-zero):
      and the reduce's combine, a two-window step; B4, K = 256 and M = 44: against the plain
      version of its split order, and as points against the reference's
      order); kernel (events and profiler device time) and plain times,
-     and each kernel's bound, and B5's microseconds per dependent add.
+     each kernel's bound and ptxas's registers and spills, and B5's
+     microseconds per dependent add.
   5. The ballot-proof circuit (c1, 99,946 constraints) end to end: host
      circuit build, Groth16 setup on the card, one prove with fixed
      randomness that must verify (pairing check), one more timed prove;
@@ -72,12 +73,13 @@ Phases, one line of output each (any failure raises and exits non-zero):
      in four designs of the BN254 G1 complete add: v2d, lazy, kara and
      the addonly diagnostic): its `run_variant` for every variant at the
      experiment's n = 22 x 2,048, the third path (each variant must be
-     launched); then, at that n and at 2^20, each variant against its
-     plain version on the experiment's points plus the edge cases and
-     points rescaled near p - 1, and v2d, lazy and kara against B1 on the
-     same points; per variant the 30-launch chain's time (events, and
-     device time from the profiler), the plain time and the bound, with
-     B1's chain on the same planes beside them.
+     launched) and each variant's instructions per add, IMAD-family and
+     multiplying, from `cuobjdump -sass`; then, at that n and at 2^20,
+     each variant against its plain version on the experiment's points
+     plus the edge cases and points rescaled near p - 1, and v2d, lazy
+     and kara against B1 on the same points; per variant the 30-launch
+     chain's time (events, and device time from the profiler), the plain
+     time and the bound, with B1's chain on the same planes beside them.
 
 The line before the last is a JSON object with one entry per kernel (B8:
 per variant) and limb count, with its registers and spills from ptxas;
@@ -97,6 +99,11 @@ times B1 (through the rows, and on planes where the checkout has that
 entry) at 45,056 and 2^16 adds on BN254 and BLS12-381 G1, and B6 at 2^16
 on BN254 Fr and BLS12-381 Fp (event, device and host times), in the same
 way for another checkout.
+
+    python3 chip_smoke.py --b3-b8
+
+times B3 at c1's and the blob's shape on random sums, and runs phase 8,
+in the same way for another checkout.
 
 A kernel's bound is the least time the card could take for its work: the
 larger of its bytes (each input read once, each output written once) over
@@ -260,6 +267,39 @@ def ptxas_usage(log_path):
         if m and name:
             yield name, f"{m.group(1)} registers, {spill} bytes spilled"
             name = None
+
+
+def sass_counts(lib_path):
+    """{function: {"instructions": n, "imad": n, "imad_mul": n}} for each
+    function of a built library, from `cuobjdump -sass`: its instructions
+    (NOPs left out), its IMAD-family instructions, and those of them that
+    multiply (all but IMAD.MOV, IMAD.SHL and IMAD.IADD, the moves, shifts
+    and adds that nvcc also puts on the multiply pipe).  Entry functions
+    go by their `..._kernel` name."""
+    from davinci_tpu_torch import cuda_build
+
+    tool = Path(cuda_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = kernel_name(m.group(1)) or m.group(1)
+            cur = counts.setdefault(
+                name, {"instructions": 0, "imad": 0, "imad_mul": 0})
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     ln)
+        if m is None or cur is None or m.group(1) == "NOP":
+            continue
+        op = m.group(1)
+        cur["instructions"] += 1
+        if op.startswith("IMAD"):
+            cur["imad"] += 1
+            if not op.startswith(("IMAD.MOV", "IMAD.SHL", "IMAD.IADD")):
+                cur["imad_mul"] += 1
+    return counts
 
 
 def kernel_function(record):
@@ -631,12 +671,13 @@ class Capture:
             setattr(self._module(name), name, fn)
 
 
-def scan_kernels_phase(calls, tag="[4c]"):
+def scan_kernels_phase(calls, regs, tag="[4c]"):
     """B2-B5 (the build for the curve's L) against their plain versions on
     the main path's inputs (`Capture.calls`; B5 at both of its shapes: the
     window sums, its last call, and the reduce's combine, its first, a
-    Horner step of two windows): the largest difference, kernel and plain
-    times, the bound."""
+    Horner step of two windows): the largest difference, kernel, device
+    and plain times, the bound, ptxas's registers and spills (`regs`,
+    from `build_phase`)."""
     from davinci_tpu_torch import kernels as K
     from davinci_tpu_torch.msm import bucket_kernel as bk
     from davinci_tpu_torch.msm.pippenger import WINDOW_BITS
@@ -703,6 +744,7 @@ def scan_kernels_phase(calls, tag="[4c]"):
                            "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": bound_ms, "bound_by": bound_by}
         rec["device_ms"] = device_ms(run, 20, kernel_function(kernel))
+        rec["ptxas"] = regs[f"{kernel_function(kernel)}@L{L}"]
         if kernel is b5:  # its chain: one dependent add at a time
             rec["chain_adds"] = (shape["W"] - 1) * (shape["wbits"] + 1)
             rec["us_per_add"] = ms * 1e3 / rec["chain_adds"]
@@ -868,7 +910,7 @@ def synthetic_batch(rng, n_votes):
                            votes=votes, root_before=rng.randrange(F.BN254_R))
 
 
-def blob_phase(dev, kernels, rng, rng_np):
+def blob_phase(dev, kernels, rng, rng_np, regs):
     """The blob path (phase 7); returns (summary, {kernel: result})."""
     import torch
 
@@ -921,7 +963,7 @@ def blob_phase(dev, kernels, rng, rng_np):
         f"MSM equal their host oracles: {out['msm']}")
     name, add = captured_add_phase(cap.args)
     say(f"[7] {name} {add}")
-    res = {name: add, **scan_kernels_phase(cap.calls, "[7]")}
+    res = {name: add, **scan_kernels_phase(cap.calls, regs, "[7]")}
     return out, res
 
 
@@ -931,6 +973,7 @@ def addk_phase(dev):
     result at the experiment's n}, {variant: launches})."""
     import torch
 
+    from davinci_tpu_torch import cuda_build
     from davinci_tpu_torch import curves as C
     from davinci_tpu_torch import kernels as K
     from davinci_tpu_torch.ec import addk_exp, cuda_add, get_device_curve
@@ -949,6 +992,9 @@ def addk_phase(dev):
         check(count > 0, f"{name} was not launched by the experiment")
     say(f"[8] the experiment's run_variant, every variant at n={n0}: "
         f"launches {launches}")
+    lib = cuda_build.library_path(Path(K.B8["v2d"].source).stem, 22)
+    sass = {f: c for f, c in sass_counts(lib).items() if f.startswith("addk_")}
+    say(f"[8] cuobjdump -sass per add (one add a thread): {sass}")
 
     res = {}
     for n in ADDK_SIZES:
@@ -1196,6 +1242,50 @@ def b1_b6_only():
     return 0
 
 
+def b3_b8_only():
+    """B3 at c1's shape and the blob's (Wt 22, NB 2,048 of random sums, on
+    BN254 and BLS12-381 G1; contiguous buckets, which every checkout's
+    wrapper takes) against its plain version: event and device times,
+    ptxas's registers and spills; then phase 8 (B8 and B1 beside it).
+    Copied into a checkout of another commit, it times that commit's B3
+    and B8 at the same shapes."""
+    import torch
+
+    from davinci_tpu_torch import curves as C
+    from davinci_tpu_torch import kernels as K
+    from davinci_tpu_torch.ec import get_device_curve
+    from davinci_tpu_torch.msm import bucket_kernel as bk
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    device_line()
+    regs = build_phase([("bucket", 22), ("bucket", 32), ("addk", 22),
+                        ("point_add", 22)])
+    rng = random.Random(SEED + 3)
+    gen = torch.Generator().manual_seed(SEED)
+    out = {}
+    for name in ("bn254_g1", "bls381_g1"):
+        spec = getattr(C, name)
+        dc = get_device_curve(spec, dev)
+        L = dc.df.L
+        pts, _ = random_points(dc, spec, 8, rng)
+        Wt, NB = 22, 2048
+        idx = torch.randint(0, 64, (Wt * NB,), generator=gen).to(dev)
+        buckets = tuple(a[idx].T.reshape(L, Wt, NB).contiguous() for a in pts)
+        run = lambda: bk.bucket_reduce_kernel(dc, buckets)
+        err = max_err(run(), bk._bucket_reduce_plain(dc, buckets,
+                                                     bk.REDUCE_C))
+        kernel = K.B3.at(L)
+        check(err == 0, f"{kernel.name} differs from its plain version")
+        out[kernel.name] = {
+            "Wt": Wt, "NB": NB, "max_abs_err": err, "ms": cuda_ms(run, 20),
+            "device_ms": device_ms(run, 20, "bucket_reduce_kernel"),
+            "ptxas": regs[f"bucket_reduce_kernel@L{L}"]}
+        say(f"[b3] {kernel.name} {out[kernel.name]}")
+    addk_phase(dev)
+    return 0
+
+
 def main(argv) -> int:
     import torch
 
@@ -1211,6 +1301,8 @@ def main(argv) -> int:
         return g2_add_only()
     if argv == ["--b1-b6"]:
         return b1_b6_only()
+    if argv == ["--b3-b8"]:
+        return b3_b8_only()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -1254,7 +1346,7 @@ def main(argv) -> int:
     check(sorted(cap.calls) == sorted(Capture.WRAPPERS), "B2-B5 recorded")
     say(f"[4b] scan-path G1 MSM equal to the host oracle: {scan}")
     say(f"[4b] edge-case G1 MSM through msm: {edge_msm_phase(dev)}")
-    res.update(scan_kernels_phase(cap.calls))
+    res.update(scan_kernels_phase(cap.calls, regs))
     del case, cap
 
     stages = StageTimes()
@@ -1273,7 +1365,7 @@ def main(argv) -> int:
     b6 = mont_mul_phase(dev)
     res[K.B6.name] = b6["bn254_fr"]  # the c1 NTT's field
     res[K.B6_L32.name] = b6["bls12_381_fp"]  # the blob path's base field
-    blob, blob_res = blob_phase(dev, kernels32, rng, rng_np)
+    blob, blob_res = blob_phase(dev, kernels32, rng, rng_np, regs)
     res.update(blob_res)
     say(f"[7] blob summary {json.dumps(blob)}")
     addk_res, addk_launches = addk_phase(dev)

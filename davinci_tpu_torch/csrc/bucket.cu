@@ -13,16 +13,17 @@
 //                                whose steps are _point_add2_kernel)
 //
 // The TPU kernels carry an accumulator in VMEM across sequential grid
-// steps.  Here a loop walks the sequential axis: B3 and B4 give one thread
-// to a lane (B4: to one chunk of it, see below), its accumulators in
-// registers; B2 and B5 give a lane six threads of a warp, which share each
-// add (group6.cuh) and keep the accumulator in shared memory.  Every group
-// operation is canonical RCB15 (field.cuh's rcb15 / rcb15_mixed, or their
-// six-thread forms; doublings are rcb15(t, t), as in the reference), so the
-// outputs equal the plain PyTorch versions of msm/bucket_kernel.py limb for
-// limb (B4: `_suffix_reduce_split_plain`, which adds in the kernel's
-// order).  Limb-major arrays are read with limb i of lane l at
-// i * stride + l, so neighbouring threads touch neighbouring words.
+// steps.  Here a loop walks the sequential axis: B4 gives one thread to a
+// chunk of a lane (see below), its accumulators in registers; B2 and B5
+// give a lane six threads of a warp, which share each add (group6.cuh) and
+// keep the accumulator in shared memory, and B3 two such groups, one for
+// each of its two sums.  Every group operation is canonical RCB15
+// (field.cuh's rcb15 / rcb15_mixed, or their six-thread forms; doublings
+// are rcb15(t, t), as in the reference), so the outputs equal the plain
+// PyTorch versions of msm/bucket_kernel.py limb for limb (B4:
+// `_suffix_reduce_split_plain`, which adds in the kernel's order).
+// Limb-major arrays are read with limb i of lane l at i * stride + l, so
+// neighbouring threads touch neighbouring words.
 //
 // What bounds them on the card:
 //   B2 moves the most bytes of the four (at n = 2^17 with 22 windows it
@@ -33,8 +34,11 @@
 //   products in a row and put six times the threads in flight; a block
 //   reads its lanes' planes as one tile and each warp writes its lanes'
 //   264-byte rows side by side, so both are coalesced.
-//   B3 does 2 complete adds per bucket: multiply bound, with Wt * C lanes
-//   (5,632 at c1) in flight.
+//   B3 does 2 complete adds per bucket, 2K - 1 per lane, on Wt * C lanes
+//   (5,632 at c1, K = 8): its operation bound is 0.01 ms, but one thread
+//   a lane walked them as one chain of 15 adds of about 29 us each.  Two
+//   six-thread groups a lane make the two sums' adds side by side: K adds
+//   in a row.
 //   B4 and B5 are chains of dependent adds on few lanes (B4: 2K - 1 adds on
 //   each of 2 Wt lanes; B5: (W - 1)(wbits + 1) adds on one lane): latency,
 //   not throughput, bounds them, far from any roofline.  B4 splits its
@@ -139,9 +143,33 @@ __global__ void __launch_bounds__(32 * SCAN_WARPS)
   }
 }
 
-// B3.  s*: (L, wt, nb) bucket arrays; one thread per (w, col), col < cw;
-// k = nb / cw rows walked from the top.  a*, b*: (L, wt, cw).
-__global__ void __launch_bounds__(THREADS)
+// B3.  s*: (L, wt, nb) views of the bucket arrays, limb j of slot k of
+// window w at j * ls + w * ws + k (the MSM passes the first nb slots of
+// its (L, wt, nb + 2) buckets: ws = nb + 2); a*, b*: (L, wt, cw).  Lane
+// (w, col), col < cw, walks the K = nb / cw slots k cw + col from the top:
+//   run_k = run_{k+1} + S_k  (k = K-1 .. 0; A = run_0),
+//   B = (((O + run_{K-1}) + run_{K-2}) + ... + run_1),
+// the reference's adds in its order.  The two chains of a lane are two
+// six-thread groups of one warp (group6.cuh's add6): at step k the run's
+// group adds S_k while the B group adds run_{k+1}, which both read before
+// either writes (add6 reads its operands before its first barrier), so a
+// lane waits on K adds in a row instead of 2K - 1.  Per step the block
+// stages its lanes' S_k as one tile (consecutive threads on consecutive
+// words), fetched into registers during the step before; the sums live in
+// shared memory and leave as one coalesced tile per output.
+constexpr int REDUCE_WARPS = 4;
+constexpr int REDUCE_LANES = REDUCE_WARPS * 2;  // groups 2i (run), 2i + 1 (B)
+constexpr int REDUCE_THREADS = 32 * REDUCE_WARPS;
+// tile words per thread
+constexpr int REDUCE_FETCH = (3 * L * REDUCE_LANES + REDUCE_THREADS - 1) /
+                             REDUCE_THREADS;
+
+struct ReduceLane {
+  Pt6<L> run, b, s;  // the run, B, this step's S_k
+  Scratch6<L> x[2];  // the run's and B's intermediates
+};
+
+__global__ void __launch_bounds__(REDUCE_THREADS)
     bucket_reduce_kernel(const int32_t* __restrict__ sx,
                          const int32_t* __restrict__ sy,
                          const int32_t* __restrict__ sz,
@@ -149,31 +177,78 @@ __global__ void __launch_bounds__(THREADS)
                          int32_t* __restrict__ az, int32_t* __restrict__ bx,
                          int32_t* __restrict__ by, int32_t* __restrict__ bz,
                          const Cst c, long long wt, long long nb,
-                         long long cw) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= wt * cw) return;
-  const long long w = t / cw, col = t % cw, K = nb / cw;
-  const long long s_in = wt * nb, s_out = wt * cw;
-  F b3, RX, RY, RZ, BX, BY, BZ;
-  set_b3(b3, c);
-  set_identity(RX, RY, RZ, c);
-  set_identity(BX, BY, BZ, c);
-  for (long long k = K - 1; k >= 0; k--) {
-    const long long o = w * nb + k * cw + col;
-    F SX, SY, SZ;
-    load(SX, sx + o, s_in);
-    load(SY, sy + o, s_in);
-    load(SZ, sz + o, s_in);
-    rcb15(RX, RY, RZ, RX, RY, RZ, SX, SY, SZ, b3, c);  // run += S_k
-    if (k) rcb15(BX, BY, BZ, BX, BY, BZ, RX, RY, RZ, b3, c);  // B += run
+                         long long cw, long long ws, long long ls) {
+  __shared__ int32_t tile[3][L][REDUCE_LANES];
+  __shared__ ReduceLane lanes[REDUCE_LANES];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / GROUP, r = lane % GROUP;
+  const long long t0 = (long long)blockIdx.x * REDUCE_LANES;
+  const long long nl = wt * cw;
+  const int nbk = (int)(nl - t0 < REDUCE_LANES ? nl - t0 : REDUCE_LANES);
+  const int role = g % 2;            // 0: the run, 1: B
+  const int li = warp * 2 + g / 2;   // the group's lane
+  const bool mine = g / 2 < 2 && li < nbk;
+  ReduceLane& R = lanes[mine ? li : 0];
+  const long long K = nb / cw;
+  // The thread's tile words: word i = threadIdx.x + e REDUCE_THREADS of
+  // the flat tile is coordinate i / (L LANES), limb (i / LANES) % L, lane
+  // i % LANES; from[e] is its source without the slot's k cw (null past
+  // the block's lanes).
+  const int32_t* from[REDUCE_FETCH];
+#pragma unroll
+  for (int e = 0; e < REDUCE_FETCH; e++) {
+    const int i = threadIdx.x + e * REDUCE_THREADS;
+    const int q = i % REDUCE_LANES;
+    from[e] = nullptr;
+    if (i < 3 * L * REDUCE_LANES && q < nbk) {
+      const long long t = t0 + q;
+      const int cc = i / (L * REDUCE_LANES);
+      from[e] = (cc == 0 ? sx : cc == 1 ? sy : sz) +
+                (i / REDUCE_LANES) % L * ls + t / cw * ws + t % cw;
+    }
   }
-  const long long o = w * cw + col;
-  store(ax + o, RX, s_out);
-  store(ay + o, RY, s_out);
-  store(az + o, RZ, s_out);
-  store(bx + o, BX, s_out);
-  store(by + o, BY, s_out);
-  store(bz + o, BZ, s_out);
+  auto fetch = [&](int32_t (&v)[REDUCE_FETCH], long long k) {
+#pragma unroll
+    for (int e = 0; e < REDUCE_FETCH; e++)
+      if (from[e]) v[e] = from[e][k * cw];
+  };
+  if (mine && r < 3) {  // run and B: the identity (0, one, 0)
+    F a;
+#pragma unroll
+    for (int k = 0; k < N; k++) a.w[k] = r == 1 ? c.one[k] : 0u;
+    st(role == 0 ? R.run.c[r] : R.b.c[r], a);
+  }
+  int32_t next[REDUCE_FETCH];
+  fetch(next, K - 1);
+  for (long long k = K - 1; k >= 0; k--) {
+    __syncthreads();  // the last step's tile and S are read
+#pragma unroll
+    for (int e = 0; e < REDUCE_FETCH; e++)
+      if (from[e]) (&tile[0][0][0])[threadIdx.x + e * REDUCE_THREADS] = next[e];
+    __syncthreads();
+    if (mine && role == 0 && r < 3) {
+      F a;
+      load(a, &tile[r][0][li], REDUCE_LANES);
+      st(R.s.c[r], a);
+    }
+    if (k) fetch(next, k - 1);  // in flight during the adds
+    __syncwarp();
+    // the run: run += S_k; B (from the second step): B += run_{k+1}
+    Pt6<L>& acc = role == 0 ? R.run : R.b;
+    add6(acc, acc, role == 0 ? R.s : R.run, R.x[role], r,
+         mine && (role == 0 || k < K - 1), c);
+  }
+  __syncthreads();
+  const long long s_out = nl;  // (L, wt, cw): limb j of lane t at j nl + t
+  for (int i = threadIdx.x; i < 6 * L * REDUCE_LANES; i += REDUCE_THREADS) {
+    const int q = i % REDUCE_LANES, j = (i / REDUCE_LANES) % L;
+    const int o = i / (L * REDUCE_LANES);
+    if (q >= nbk) continue;
+    int32_t* dst = o == 0 ? ax : o == 1 ? ay : o == 2 ? az
+                 : o == 3 ? bx : o == 4 ? by : bz;
+    const Pt6<L>& p = o < 3 ? lanes[q].run : lanes[q].b;
+    dst[j * s_out + t0 + q] = limb_of<L>(p.c[o % 3], j);
+  }
 }
 
 // B4.  s: (K, 3L, M) point columns (X limbs, Y limbs, Z limbs); a, b:
@@ -391,10 +466,6 @@ Cst consts_of(const uint32_t* words) {
   return c;
 }
 
-unsigned blocks_for(long long n) {
-  return (unsigned)((n + THREADS - 1) / THREADS);
-}
-
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError()
@@ -417,11 +488,14 @@ extern "C" int davinci_bucket_reduce_g1(
     const int32_t* sx, const int32_t* sy, const int32_t* sz, int32_t* ax,
     int32_t* ay, int32_t* az, int32_t* bx, int32_t* by, int32_t* bz,
     const uint32_t* consts, long long wt, long long nb, long long cw,
-    void* stream) {
+    long long ws, long long ls, void* stream) {
   if (wt * cw <= 0) return 0;
-  bucket_reduce_kernel<<<blocks_for(wt * cw), THREADS, 0,
-                         (cudaStream_t)stream>>>(
-      sx, sy, sz, ax, ay, az, bx, by, bz, consts_of(consts), wt, nb, cw);
+  if (nb % cw) return (int)cudaErrorInvalidValue;
+  bucket_reduce_kernel<<<(unsigned)((wt * cw + REDUCE_LANES - 1) /
+                                    REDUCE_LANES),
+                         REDUCE_THREADS, 0, (cudaStream_t)stream>>>(
+      sx, sy, sz, ax, ay, az, bx, by, bz, consts_of(consts), wt, nb, cw, ws,
+      ls);
   return (int)cudaGetLastError();
 }
 

@@ -152,7 +152,7 @@ B1 = Kernel("point_add_g1", "davinci_point_add_g1", _POINT_ADD,
 B2 = Kernel("bucket_scan_g1", "davinci_bucket_scan_g1", _BUCKET,
             f"{_REF}:46", 3, 3)
 B3 = Kernel("bucket_reduce_g1", "davinci_bucket_reduce_g1", _BUCKET,
-            f"{_REF}:585", 9, 3)
+            f"{_REF}:585", 9, 5)
 B4 = Kernel("suffix_reduce_g1", "davinci_suffix_reduce_g1", _BUCKET,
             f"{_REF}:365", 3, 3)
 B5 = Kernel("horner_g1", "davinci_horner_g1", _BUCKET,

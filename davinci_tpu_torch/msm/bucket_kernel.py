@@ -10,15 +10,16 @@ its wrapper:
     addition while the bucket stays the same, and emits the accumulator at
     every position: (rows, NL, 3L).
   * B3 `bucket_reduce_kernel`: per-lane reduce partials A_c = sum_k S_kC+c
-    and B_c = sum_k k S_kC+c of (L, Wt, NB) bucket arrays.
+    and B_c = sum_k k S_kC+c of (L, Wt, NB) bucket arrays, read in place.
   * B4 `suffix_reduce_kernel`: A = sum_k s_k, B = sum_k k s_k over the
     leading axis of (K, 3L, M), split into chunks walked in parallel.
   * B5 `horner_kernel`: sum_w 2^(wbits w) S_w, MSB first; on G2 rows
     `horner_g2_kernel` (the fused route's window combine).
 
 The TPU carries each accumulator across sequential grid steps in VMEM;
-here a loop walks the sequential axis: B3 and B4 give a lane one CUDA
-thread, B2 and B5 six threads of a warp that share each add.
+here a loop walks the sequential axis: B4 gives a chunk of a lane one
+CUDA thread, B2 and B5 six threads of a warp that share each add, B3 two
+such groups (its two sums side by side).
 A wrapper runs the plain version on CPU tensors only; on CUDA tensors it
 launches its kernel or raises.  Both give canonical limbs, so they agree
 limb for limb (B4's kernel with `_suffix_reduce_split_plain`, its CPU
@@ -240,7 +241,11 @@ def bucket_reduce_kernel(curve, buckets):
     scratch slots stripped; NB a power of two).  With C = REDUCE_C (or NB
     if it does not divide NB) and K = NB / C, returns (A, B), each
     (L, Wt, C) x3:  A_c = sum_k S_{kC+c},  B_c = sum_k k S_{kC+c},  so
-    T_w = C sum_c B_c + sum_c c A_c."""
+    T_w = C sum_c B_c + sum_c c A_c.
+
+    The three arrays may be views with one set of strides and contiguous
+    slots, such as the first NB slots of the MSM's (L, Wt, NB + 2)
+    buckets: the kernel reads them in place."""
     device = check_tensors(B3, buckets)
     L, Wt, NB = buckets[0].shape
     _require(B3, L == curve.df.L and NB & (NB - 1) == 0,
@@ -250,11 +255,16 @@ def bucket_reduce_kernel(curve, buckets):
     C = REDUCE_C if NB % REDUCE_C == 0 else NB
     if device.type == "cpu":
         return _bucket_reduce_plain(curve, buckets, C)
-    kernel, consts = _cuda_curve(B3, curve, buckets)
+    strides = buckets[0].stride()
+    _require(B3, all(b.stride() == strides for b in buckets)
+             and strides[2] == 1, "buckets need one set of strides and "
+             "contiguous slots")
+    kernel, consts = _cuda_curve(B3, curve, ())
     outs = [torch.empty((L, Wt, C), dtype=torch.int32, device=device)
             for _ in range(6)]
     if Wt:
-        kernel.launch(device, (*buckets, *outs), consts, (Wt, NB, C))
+        kernel.launch(device, (*buckets, *outs), consts,
+                      (Wt, NB, C, strides[1], strides[0]))
     return tuple(outs[:3]), tuple(outs[3:])
 
 

@@ -325,7 +325,7 @@ def _bucket_reduce_t(curve, buckets, shifted: bool = False):
         # ported: the signed scheme's NB is a power of two
         raise ValueError(f"{nb} buckets: the reduce takes a power of two")
     A, B = bucket_kernel.bucket_reduce_kernel(
-        curve, tuple(b[:, :, :nb].contiguous() for b in buckets))
+        curve, tuple(b[:, :, :nb] for b in buckets))
     return _reduce_combine_t(curve, A, B, shifted)
 
 

@@ -197,9 +197,10 @@ def test_addk_constants_are_bn254():
 
 def test_lazy_bounds_fit_the_words():
     """The bounds of csrc/addk.cu's lazy formula, in multiples of p and
-    exact: every value below 2^256 (8 words), every product's REDC input
-    below p 2^264, every subtract's K p at or above its subtrahend, and
-    the final values below 4p (subtract 2p, then p)."""
+    exact: every value below 2^256 (8 words), every product's operands
+    below 2^256 - p (its carry-chained accumulator's headroom), every
+    product's REDC input below p 2^264, every subtract's K p at or above
+    its subtrahend, and the final values below 4p (subtract 2p, then p)."""
     p = TC.bn254_g1.field_spec.p
     words, e = Fraction(2**256, p), Fraction(p, 2**264)
     seen = []
@@ -210,6 +211,7 @@ def test_lazy_bounds_fit_the_words():
         return x
 
     def mul(a, b):
+        assert max(a, b) < words - 1  # a p < 2^256 - p
         assert a * b * p < 2**264  # a b p^2 < p R
         return val(1 + a * b * e)
 

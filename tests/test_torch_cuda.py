@@ -229,14 +229,33 @@ def test_bucket_scan_matches_plain(dev, signed, name):
                 lambda: bk._bucket_scan_plain(dc, pts_arr, keys, signed))
 
 
-def test_bucket_reduce_matches_plain(dev):
-    dc = get_device_curve(C.bn254_g1, dev)
-    Wt, NB = 3, 512  # C = 256, K = 2
-    P = _projective(dc, 64, 5)
-    idx = torch.randint(0, 64, (Wt * NB,), generator=_gen(6)).to(dev)
-    buckets = tuple(a[idx].T.reshape(22, Wt, NB).contiguous() for a in P)
-    _equal_once(K.B3, lambda: bk.bucket_reduce_kernel(dc, buckets),
-                lambda: bk._bucket_reduce_plain(dc, buckets, bk.REDUCE_C))
+@pytest.mark.parametrize("name, Wt, NB", [
+    ("bn254_g1", 3, 512),     # C = 256, K = 2
+    ("bn254_g1", 22, 2048),   # c1's shape: K = 8
+    ("bls381_g1", 22, 2048),  # the blob's, at L = 32
+    ("bn254_g1", 3, 64),      # NB < 256: C = NB, K = 1
+    ("bls381_g1", 5, 4),      # 20 lanes: a partial block across windows
+])
+def test_bucket_reduce_matches_plain(dev, name, Wt, NB):
+    """B3 on the first NB slots of (L, Wt, NB + 2) buckets, as the MSM
+    passes them (views, read in place), with identity slots."""
+    spec = getattr(C, name)
+    dc = get_device_curve(spec, dev)
+    L = dc.df.L
+    r = random.Random(5)
+    pts = dc.encode_points([spec.gen.mul(r.randrange(1, spec.r))
+                            for _ in range(128)])
+    P = cuda_add.rcb15_plain(dc, tuple(a[:64] for a in pts),
+                             tuple(a[64:] for a in pts))
+    idx = torch.randint(0, 64, (Wt * (NB + 2),), generator=_gen(6)).to(dev)
+    full = tuple(a[idx].T.reshape(L, Wt, NB + 2).contiguous() for a in P)
+    ident = dc.identity((1,))
+    for a, v in zip(full, ident):
+        a[:, 0, 1] = v[0]
+    buckets = tuple(a[:, :, :NB] for a in full)
+    C_ = bk.REDUCE_C if NB % bk.REDUCE_C == 0 else NB
+    _equal_once(K.B3.at(L), lambda: bk.bucket_reduce_kernel(dc, buckets),
+                lambda: bk._bucket_reduce_plain(dc, buckets, C_))
 
 
 @pytest.mark.parametrize("Kr", [1, 4, 5, 7, 32, 256])

@@ -220,6 +220,32 @@ def test_plain_reduce_and_combine_match_reference(dc, R, monkeypatch):
         assert got[w] == host
 
 
+def test_bucket_reduce_reads_the_buckets_in_place(dc, monkeypatch):
+    """_bucket_reduce_t hands B3 views of its (L, Wt, NB + 2) buckets (no
+    copy), and B3's wrapper gives the same A and B on them as on
+    contiguous copies."""
+    monkeypatch.setattr(bk, "REDUCE_C", 4)
+    Wt, nb = 2, 8
+    pts, _ = _projective(dc, 6, 49)
+    r = random.Random(50)
+    idx = [r.randrange(6) for _ in range(Wt * (nb + 2))]
+    buckets = _t(tuple(a[idx] for a in pts), (Wt, nb + 2))
+    seen = []
+    reduce = bk.bucket_reduce_kernel
+    monkeypatch.setattr(bk, "bucket_reduce_kernel",
+                        lambda c, b: seen.append(b) or reduce(c, b))
+    pp._bucket_reduce_t(dc, buckets)
+    (views,) = seen
+    for v, b in zip(views, buckets):
+        assert v.shape == (L, Wt, nb) and v.data_ptr() == b.data_ptr()
+        assert v.stride() == b.stride()
+    got = reduce(dc, views)
+    want = reduce(dc, tuple(v.contiguous() for v in views))
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a, b)
+
+
 def test_plain_suffix_reduce_matches_host(dc):
     K, M = 5, 3
     pts, hpts = _projective(dc, K * M, 48)
