@@ -81,6 +81,26 @@ Phases, one line of output each (any failure raises and exits non-zero):
      chain's time (events, and device time from the profiler), the plain
      time and the bound, with B1's chain on the same planes beside them.
 
+  9. The sequencer's per-vote prover on the port's own modules
+     (committed-377: the vote verifier's arithmetic on its curve, 620
+     emulated BN254 Fp products range-checked by 2^12-entry lookups under
+     the commitment extension, 99,436 constraints): [9a] the build; [9b]
+     `ArtifactStore.load_or_setup` on the card (a store under build/), with
+     the sizes of pk.bin and vk.bin; [9c] `prove_and_verify_committed`,
+     which must build once, and `verify_committed` false for public 8 and
+     for pok replaced by D; [9d] the solved system saved and loaded, then
+     three `prove_committed_reuse` proofs, each verified, with their stage
+     times (the D and pok MSMs: `groth16.commit`), the launches of the
+     kernels of this path (B1-B5, B7 and B5's G2 build at L = 32, B6 at
+     L = 22: each must be launched) and peak device memory; [9e] a second
+     store on the directory, which must load with no setup, proves and
+     verifies; then one more reuse prove with every kernel call recorded,
+     and each call made again against its plain version (B1-B5, B5's G2
+     build and B7 at L = 32, B6 on BLS12-377's Fr: every call must be
+     equal), with the kernel's and the plain version's times on the
+     largest call; [9f] a plain BLS12-381 Groth16 at a 2^12 domain, set
+     up, proved and verified true and false on the card.
+
 The line before the last is a JSON object with one entry per kernel (B8:
 per variant) and limb count, with its registers and spills from ptxas;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device,
@@ -105,6 +125,14 @@ way for another checkout.
 times B3 at c1's and the blob's shape on random sums, and runs phase 8,
 in the same way for another checkout.
 
+    python3 chip_smoke.py --c2-size
+
+runs phase 9 alone with committed-377 grown to 23,000 products (3.39M
+constraints, the 2^22 domain of the production vote verifier): build,
+setup on the card through the store, the first committed prove, one
+steady reuse prove and the second store's load and prove (the replay of
+9d's kernel calls is left out: the plain versions at 2^22 take minutes).
+
 A kernel's bound is the least time the card could take for its work: the
 larger of its bytes (each input read once, each output written once) over
 3.35 TB/s and its 32-bit integer multiplies over the H100 SXM's multiply
@@ -126,6 +154,7 @@ import json
 import logging
 import random
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -640,6 +669,10 @@ class Capture:
 
     WRAPPERS = ("_bucket_scan", "bucket_reduce_kernel",
                 "suffix_reduce_kernel", "horner_kernel")
+    # every wrapper a Groth16 prove reaches: B1 (rows and planes), B2-B5,
+    # B5's G2 build, B6 and B7
+    PROVE = WRAPPERS + ("point_add", "point_add_planes", "horner_g2_kernel",
+                        "point_add_fp2", "mont_mul")
 
     def __init__(self, names=WRAPPERS):
         self.names = names
@@ -652,8 +685,11 @@ class Capture:
     @staticmethod
     def _module(name):
         from davinci_tpu_torch.ec import cuda_add
+        from davinci_tpu_torch.ff import cuda_mul
         from davinci_tpu_torch.msm import bucket_kernel as bk
 
+        if name == "mont_mul":
+            return cuda_mul
         return cuda_add if name.startswith("point_add") else bk
 
     def __enter__(self):
@@ -804,6 +840,69 @@ def captured_add_phase(args):
                          "device_ms": device_ms(run, 20, "point_add_kernel"),
                          "plain_ms": cuda_ms(plain, 3), "bound_ms": bound_ms,
                          "bound_by": bound_by}
+
+
+def replay_phase(calls, tag):
+    """Every call a path made of each kernel wrapper (`Capture.calls`)
+    made again, against its plain version on the same inputs: each must
+    be equal, limb for limb.  Per wrapper: the calls, the largest
+    difference, and the kernel's and the plain version's ms on the
+    largest call (CUDA events)."""
+    import torch
+
+    from davinci_tpu_torch.ec import cuda_add
+    from davinci_tpu_torch.ff import cuda_mul
+    from davinci_tpu_torch.msm import bucket_kernel as bk
+
+    def rows(t):
+        return tuple(a.reshape(a.shape[0], -1).T for a in t)
+
+    def planes_plain(dc, p, q):
+        out = cuda_add.rcb15_plain(dc, rows(p), rows(q))
+        return tuple(a.T.reshape(p[0].shape) for a in out)
+
+    def reduce_plain(dc, buckets):
+        NB = buckets[0].shape[2]
+        C = bk.REDUCE_C if NB % bk.REDUCE_C == 0 else NB
+        return bk._bucket_reduce_plain(dc, buckets, C)
+
+    def suffix_plain(dc, s):
+        return bk._suffix_reduce_split_plain(dc, s, bk.suffix_chunk(s.shape[0]))
+
+    plains = {"point_add": cuda_add.rcb15_plain,
+              "point_add_planes": planes_plain,
+              "point_add_fp2": cuda_add.rcb15_plain,
+              "_bucket_scan": bk._bucket_scan_plain,
+              "bucket_reduce_kernel": reduce_plain,
+              "suffix_reduce_kernel": suffix_plain,
+              "horner_kernel": bk._horner_plain,
+              "horner_g2_kernel": bk._horner_rows_plain,
+              "mont_mul": cuda_mul.mont_mul_plain}
+
+    def size(args):
+        return sum(t.numel() for t in flat(args[1:])
+                   if isinstance(t, torch.Tensor))
+
+    res = {}
+    for name, made in calls.items():
+        kernel, plain = getattr(Capture._module(name), name), plains[name]
+        err = 0
+        for args in made:
+            got, want = flat(kernel(*args)), flat(plain(*args))
+            check(len(got) == len(want) and all(
+                g.shape == w.shape for g, w in zip(got, want)),
+                f"{name}: other shapes than its plain version's")
+            if any(g.numel() for g in got):
+                err = max(err, max_err(got, want))
+        check(err == 0, f"{name} differs from its plain version on a call "
+                        f"of the path")
+        big = max(made, key=size)
+        res[name] = {"calls": len(made), "max_abs_err": err,
+                     "largest": size(big),
+                     "ms": cuda_ms(lambda: kernel(*big), 3),
+                     "plain_ms": cuda_ms(lambda: plain(*big), 1, warm=False)}
+        say(f"{tag} {name} {res[name]}")
+    return res
 
 
 def ballot_circuit():
@@ -1127,6 +1226,238 @@ def groth16_phase(dev, cs, public, kernels, stages):
     return out
 
 
+COMMITTED_CHAIN = 620     # products: 99,436 constraints, a 2^17 domain
+COMMITTED_CHAIN_C2 = 23000  # 3.39M constraints, a 2^22 domain (c2's)
+BLS381_CHAIN = 4000       # products of phase 9f: 4,001 constraints, 2^12
+# the kernels a BLS12-377 committed prove launches: the G1 MSMs at L = 32
+# (B1-B5), the b2 MSM (B7 and the G2 combine at L = 32), every Fr product
+# of the witness and the NTT (B6 at L = 22)
+COMMITTED_KERNELS = ("point_add_g1_l32", "bucket_scan_g1_l32",
+                     "bucket_reduce_g1_l32", "suffix_reduce_g1_l32",
+                     "horner_g1_l32", "horner_g2_l32", "mont_mul",
+                     "point_add_g2_l32")
+
+
+def committed_377(chain, challenge=0, blind=0):
+    """committed-377: the arithmetic of the vote verifier (c2) on its curve.
+    One public input (7), a chain of `chain` emulated BN254 Fp products
+    whose limbs are range-checked by log-derivative lookups (a 2^12 table)
+    under the commitment extension, the chain's result asserted equal to
+    the host's; the `_refinalize` hook set, so a committed prove builds
+    once.  The construction of tests/test_lookup.py:78-131."""
+    from davinci_tpu_torch import fields as F
+    from davinci_tpu_torch.circuits.emulated import EmulatedOps
+    from davinci_tpu_torch.circuits.lookup import LookupRangeChecker
+    from davinci_tpu_torch.groth16 import ConstraintSystem
+
+    cs = ConstraintSystem(F.BLS12_377_R)
+    marker = cs.pub_input(7)
+    rc = LookupRangeChecker(cs, table_bits=12)
+    E = EmulatedOps(cs, F.BN254_P, range_checker=rc)
+    a0, b0 = 123456789, 987654321
+    acc, b = E.alloc(a0), E.alloc(b0)
+    for _ in range(chain):
+        acc = E.mul(acc, b)
+    E.assert_eq(acc, E.constant(a0 * pow(b0, chain, F.BN254_P) % F.BN254_P))
+    rc.finalize(challenge, blind)
+    cs._refinalize = rc.refinalize
+    cs.assert_eq(marker, cs.constant(7))
+    return cs
+
+
+def committed_phase(dev, stages, chain=COMMITTED_CHAIN, steady=3):
+    """Phase 9: the sequencer's per-vote prover on the port's own modules.
+    committed-377 set up on the card through the artifact store (under
+    build/, removed at the end), a first committed prove (one build), its
+    refusals, the solved system saved and loaded, `steady` reuse proves
+    with their stages and launches, and a second store on the same
+    directory that loads with no setup.  Returns (results, the runtime,
+    the loaded solved system)."""
+    import tempfile
+
+    import torch
+
+    from davinci_tpu_torch import kernels as K
+    from davinci_tpu_torch.circuits.artifacts import ArtifactStore
+    from davinci_tpu_torch.groth16 import CommittedProof
+
+    cid, out = "committed-377", {}
+    t0 = time.perf_counter()
+    cs = committed_377(chain)
+    out["build_s"] = time.perf_counter() - t0
+    out.update(constraints=len(cs.constraints), variables=cs.num_variables,
+               committed=len(cs.committed))
+    say(f"[9a] committed-377 built: {out['constraints']} constraints, "
+        f"{out['variables']} variables, {out['committed']} committed wires "
+        f"in {out['build_s']:.3f} s")
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="store-", dir=ROOT / "build"))
+    try:
+        for k in K.KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        rt = ArtifactStore(root).load_or_setup(cid, "bls12_377", cs)
+        torch.cuda.synchronize()
+        out["setup_s"] = time.perf_counter() - t0
+        out["pk_bin_bytes"] = (root / cid / "pk.bin").stat().st_size
+        out["vk_bin_bytes"] = (root / cid / "vk.bin").stat().st_size
+        check(rt.g16.device.type == "cuda", "the store's Groth16 is on the card")
+        out["setup_launches"] = {k.name: k.launches for k in K.KERNELS
+                                 if k.launches}
+        say(f"[9b] setup on the card through the store: {out['setup_s']:.3f} "
+            f"s, pk.bin {out['pk_bin_bytes']} B, vk.bin {out['vk_bin_bytes']}"
+            f" B, launches {out['setup_launches']}")
+        del cs
+
+        built = []
+
+        def build(challenge, blind):
+            built.append(committed_377(chain, challenge, blind))
+            return built[-1]
+
+        t0 = time.perf_counter()
+        proof = rt.prove_and_verify_committed(build, [7])
+        out["first_prove_and_verify_s"] = time.perf_counter() - t0
+        check(len(built) == 1, "the committed prove built the circuit once")
+        cs = built[0]
+        t0 = time.perf_counter()
+        check(not rt.verify_committed(proof, [8]),
+              "a committed proof verifies against a wrong public input")
+        out["verify_false_s"] = time.perf_counter() - t0
+        swapped = CommittedProof(a=proof.a, b=proof.b, c=proof.c, d=proof.d,
+                                 pok=proof.d)
+        check(not rt.verify_committed(swapped, [7]),
+              "a committed proof verifies with its pok replaced by D")
+        say(f"[9c] first committed prove and verify "
+            f"{out['first_prove_and_verify_s']:.3f} s (one build); false for "
+            f"public 8 ({out['verify_false_s']:.3f} s) and for pok = D")
+
+        t0 = time.perf_counter()
+        path = ArtifactStore(root).save_solved(cid, "vote", cs)
+        lo = ArtifactStore(root).load_solved(cid, "vote")
+        out["solved_bytes"] = path.stat().st_size
+        out["save_load_solved_s"] = time.perf_counter() - t0
+        check(lo is not None and getattr(lo, "_refinalize", None) is not None,
+              "the solved system loads with its refinalize state")
+        check(lo.values == cs.values, "the loaded witness is the saved one")
+        del cs, built
+        out["steady"] = []
+        for i in range(steady):
+            stages.took.clear()
+            for k in K.KERNELS:
+                k.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            proof = rt.prove_committed_reuse(lo)
+            torch.cuda.synchronize()
+            rec = {"prove_s": time.perf_counter() - t0,
+                   "stages_s": {name: stages.took.get(name) for name in (
+                       "groth16.commit", "groth16.witness_reduce_dev",
+                       "groth16.quotient_ntt", "groth16.msms")},
+                   "launches": {k.name: k.launches for k in K.KERNELS
+                                if k.name in COMMITTED_KERNELS},
+                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+            for name, n in rec["launches"].items():
+                check(n > 0, f"{name} was not launched by the steady prove")
+            t0 = time.perf_counter()
+            check(rt.verify_committed(proof, lo.public_values()),
+                  f"steady proof {i} does not verify")
+            rec["verify_s"] = time.perf_counter() - t0
+            out["steady"].append(rec)
+            say(f"[9d] steady prove {i}: {json.dumps(rec)}")
+
+        stages.took.clear()
+        rt2 = ArtifactStore(root).load_or_setup(cid, "bls12_377", lo)
+        # a key that does not read is logged, then set up afresh
+        check("artifacts.load" in stages.took
+              and "artifacts.setup" not in stages.took,
+              "the second store loaded the key with no setup")
+        check(rt2.pk.z_g1 == rt.pk.z_g1, "the loaded key is the saved one")
+        t0 = time.perf_counter()
+        proof = rt2.prove_committed_reuse(lo)
+        out["second_store_prove_s"] = time.perf_counter() - t0
+        check(rt2.verify_committed(proof, [7]),
+              "the second store's proof does not verify")
+        say(f"[9e] a second store loaded the key with no setup "
+            f"({stages.took['artifacts.load']} s) and proved in "
+            f"{out['second_store_prove_s']:.3f} s; verified")
+    finally:
+        shutil.rmtree(root)
+    return out, rt, lo
+
+
+def committed_kernels_phase(rt, lo):
+    """Phase 9d's kernels: one more reuse prove with every kernel call
+    recorded (verified), then each call against its plain version
+    (`replay_phase`): B1-B5 and B5's G2 build at L = 32, B6 on BLS12-377's
+    Fr, B7 at L = 32, at committed-377's own shapes."""
+    with Capture(Capture.PROVE) as cap:
+        proof = rt.prove_committed_reuse(lo)
+    check(rt.verify_committed(proof, lo.public_values()),
+          "the recorded proof does not verify")
+    # B1's rows serve setup and the fused route, which a prove may not reach
+    missing = set(cap.names) - set(cap.calls) - {"point_add"}
+    check(not missing, f"the prove called no {sorted(missing)}")
+    return replay_phase(cap.calls, "[9d]")
+
+
+def bls381_phase(dev):
+    """Phase 9f: a plain BLS12-381 circuit (x <- x (x + 1), BLS381_CHAIN
+    times, the result public: a 2^12 domain) set up, proved and verified
+    on the card."""
+    import torch
+
+    from davinci_tpu_torch import fields as F
+    from davinci_tpu_torch.groth16 import ConstraintSystem, Groth16
+
+    cs = ConstraintSystem(F.BLS12_381_R)
+    y = cs.pub_input(0)
+    acc = cs.priv_input(3)
+    for _ in range(BLS381_CHAIN):
+        acc = cs.mul(acc, acc + 1)
+    cs.values[1] = acc.value
+    cs.assert_eq(acc, y)
+    g16 = Groth16("bls12_381", device=dev)
+    t0 = time.perf_counter()
+    pk, vk = g16.setup(cs, rng=random.Random(SEED))
+    torch.cuda.synchronize()
+    out = {"constraints": len(cs.constraints), "domain_log": pk.domain_log,
+           "setup_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    proof = g16.prove(pk, cs)
+    out["prove_s"] = time.perf_counter() - t0
+    public = cs.public_values()
+    check(g16.verify(vk, proof, public), "the BLS12-381 proof does not verify")
+    check(not g16.verify(vk, proof, [public[0] + 1]),
+          "the BLS12-381 proof verifies against a wrong public input")
+    say(f"[9f] BLS12-381 plain Groth16 on the card, true and false: {out}")
+    return out
+
+
+def committed_only():
+    """Phase 9 alone at c2's domain (2^22): committed-377 grown to 23,000
+    products, set up on the card through the store, a first committed
+    prove, one steady reuse prove and the second store's load and prove."""
+    import torch
+
+    from davinci_tpu_torch import log
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_run = time.perf_counter()
+    device_line()
+    build_phase([(src, limbs) for src in ("point_add", "bucket", "mont_mul")
+                 for limbs in (22, 32)])
+    stages = StageTimes()
+    log.init()
+    logging.getLogger("davinci").addHandler(stages)
+    out, _, _ = committed_phase(dev, stages, COMMITTED_CHAIN_C2, steady=1)
+    out["run_s"] = time.perf_counter() - t_run
+    say(json.dumps({"committed_c2_size": out}))
+    return 0
+
+
 def device_line():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1303,6 +1634,8 @@ def main(argv) -> int:
         return b1_b6_only()
     if argv == ["--b3-b8"]:
         return b3_b8_only()
+    if argv == ["--c2-size"]:
+        return committed_only()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -1316,6 +1649,7 @@ def main(argv) -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    t_run = time.perf_counter()
     device_line()
     regs = build_phase()
 
@@ -1370,7 +1704,13 @@ def main(argv) -> int:
     say(f"[7] blob summary {json.dumps(blob)}")
     addk_res, addk_launches = addk_phase(dev)
     res.update(addk_res)
+    committed, rt, lo = committed_phase(dev, stages)
+    committed["kernels"] = committed_kernels_phase(rt, lo)
+    del rt, lo
+    committed["bls12_381"] = bls381_phase(dev)
+    say(f"[9] summary {json.dumps(committed)}")
 
+    say(f"whole run: {time.perf_counter() - t_run:.1f} s")
     launches = {**c1["steady_launches"], **blob["launches"], **addk_launches,
                 **g2_msm["launches"]}
     say(json.dumps({"kernels": [

@@ -1,5 +1,8 @@
 """Groth16 setup / prove / verify on one device.  Counterpart of
-`davinci_tpu/groth16/core.py` (the plain, uncommitted proof).
+`davinci_tpu/groth16/core.py`, with its commitment extension: committed
+wires live on the gamma basis, exposed through a commitment D in the
+proof with a proof of knowledge, and a Fiat-Shamir challenge wire bound
+to H(D) (the enabler for the lookup range checks of `circuits/lookup.py`).
 
 Proving runs on the device: the witness reduction, the quotient
 polynomial by coset NTTs (the coset vanishing polynomial is constant on
@@ -8,7 +11,8 @@ MSMs over the proving key.  Setup evaluates the QAP on the host and makes
 the key's bases on the device with fixed-base window tables (the route the
 reference takes on its accelerator); on a CPU device it takes the
 reference's CPU route, a batched double-and-add.  Verification is a host
-pairing check.
+pairing check.  The commitment D and its proof of knowledge are two
+more G1 MSMs over the key's commitment bases.
 """
 
 from __future__ import annotations
@@ -24,12 +28,14 @@ from davinci_tpu_torch import fields as F
 from davinci_tpu_torch import log
 from davinci_tpu_torch.curves import AffinePoint
 from davinci_tpu_torch.ec import get_device_curve
+from davinci_tpu_torch.ethereum import keccak256
 from davinci_tpu_torch.groth16.bases import EncodedBases
 from davinci_tpu_torch.groth16.witness_dev import (
     DeviceCSR,
     matvec_device,
     satisfied_device,
 )
+from davinci_tpu_torch.hash.poseidon import poseidon_hash
 from davinci_tpu_torch.msm import msm, pippenger
 from davinci_tpu_torch.msm.pippenger import (
     NBUCKETS,
@@ -82,6 +88,12 @@ class Proof:
     a: AffinePoint
     b: AffinePoint  # G2
     c: AffinePoint
+
+
+@dataclass(eq=False)
+class CommittedProof(Proof):
+    d: AffinePoint = None    # Pedersen commitment to the committed wires
+    pok: AffinePoint = None  # knowledge proof: pok == eta * d
 
 
 def _fixed_base_table_scan(dc, bx, by, bz):
@@ -413,6 +425,78 @@ class Groth16:
         )
         return Proof(a=A, b=B2, c=Cpt)
 
+    def prove_committed(self, pk: ProvingKey, build_fn, rng=None,
+                        r_rand=None, s_rand=None) -> CommittedProof:
+        """Prove a circuit that uses cs.commit().
+
+        build_fn(challenge, blind) -> solved ConstraintSystem.  Build with a
+        fresh blind and challenge 0 to learn the committed wires, commit
+        to them (D and pok), then re-solve with challenge H(D): in place
+        through the system's `_refinalize` hook where it has one, else by
+        a second build.  Both builds share the key: the structure does
+        not depend on the witness."""
+        rng = rng or _random.Random()
+        blind = rng.randrange(self.r)
+        cs0 = build_fn(0, blind)
+        committed_vals = [cs0.values[i] for i in cs0.committed]
+        D, pok = self._commit(pk, committed_vals)
+        challenge = self.commitment_challenge(D)
+        refinalize = getattr(cs0, "_refinalize", None)
+        if refinalize is not None:
+            refinalize(challenge)
+            cs = cs0
+        else:
+            cs = build_fn(challenge, blind)
+        if [cs.values[i] for i in cs.committed] != committed_vals:
+            raise ProveError("committed wires must not depend on the challenge")
+        base = self.prove(pk, cs, r_rand=r_rand, s_rand=s_rand)
+        return CommittedProof(a=base.a, b=base.b, c=base.c, d=D, pok=pok)
+
+    def prove_committed_reuse(self, pk: ProvingKey, cs, rng=None,
+                              r_rand=None, s_rand=None) -> CommittedProof:
+        """Re-prove an already built committed system with no circuit
+        construction: a fresh blind wire, then the challenge-dependent
+        wires re-solved in place by the system's `_refinalize` hook.
+        Writes `cs.values`."""
+        refinalize = getattr(cs, "_refinalize", None)
+        if refinalize is None:
+            raise ProveError(
+                "prove_committed_reuse needs a circuit with a _refinalize hook")
+        rng = rng or _random.Random()
+        cs.values[cs.committed[-1]] = rng.randrange(self.r)  # blind wire
+        D, pok = self._commit(pk, [cs.values[i] for i in cs.committed])
+        refinalize(self.commitment_challenge(D))
+        base = self.prove(pk, cs, r_rand=r_rand, s_rand=s_rand)
+        return CommittedProof(a=base.a, b=base.b, c=base.c, d=D, pok=pok)
+
+    def _commit(self, pk: ProvingKey, committed_vals):
+        """(D, pok): the committed wires' MSMs over the commitment basis
+        and its eta multiple."""
+        with log.info_time("groth16.commit", n_committed=len(committed_vals)):
+            D = self._msm_enc(self.dc, self.g1, pk.k_commit_g1, committed_vals)
+            pok = self._msm_enc(self.dc, self.g1, pk.k_commit_eta_g1,
+                                committed_vals)
+        return D, pok
+
+    def commitment_challenge(self, D: AffinePoint) -> int:
+        """H(D) mod r, the Fiat-Shamir challenge the verifier recomputes:
+        keccak on BN254 (proofs verified by EVM contracts), Poseidon over
+        the G1 base field on every other curve (proofs verified inside
+        the next circuit of the recursion chain, whose native field that
+        is)."""
+        if self.curve_name == "bn254":
+            nb = (self.g1.fld.p.bit_length() + 7) // 8
+            if D.infinity:
+                data = b"\x00" * (2 * nb)
+            else:
+                data = D.x.v.to_bytes(nb, "big") + D.y.v.to_bytes(nb, "big")
+            return (
+                int.from_bytes(keccak256(b"davinci-commit-v1" + data), "big")
+                % self.r
+            )
+        x, y = (0, 0) if D.infinity else (D.x.v, D.y.v)
+        return poseidon_hash([x, y], p=self.g1.fld.p) % self.r
+
     def _pk_dev_indices(self, pk, npub: int, m: int):
         """Device index tensors for the a/b/k witness gathers, cached on
         the ProvingKey per device."""
@@ -485,15 +569,46 @@ class Groth16:
 
     # ----------------------------------------------------------------- verify
 
-    def verify(self, vk: VerifyingKey, proof: Proof, public_inputs: list) -> bool:
-        """public_inputs: the circuit's public values (without the ONE)."""
+    def _public_sum(self, vk: VerifyingKey, public_inputs: list):
+        """sum_i z_i [k_pub_i] over ONE and the publics, or None for a
+        wrong count of publics."""
         z_pub = [1] + [x % self.r for x in public_inputs]
         if len(z_pub) != len(vk.k_pub_g1):
-            return False
+            return None
         pi = self.g1.infinity()
         for pt, s in zip(vk.k_pub_g1, z_pub):
             if s:
                 pi = pi.add(pt.mul(s))
+        return pi
+
+    def verify(self, vk: VerifyingKey, proof: Proof, public_inputs: list) -> bool:
+        """public_inputs: the circuit's public values (without the ONE)."""
+        pi = self._public_sum(vk, public_inputs)
+        if pi is None:
+            return False
+        return self._check(vk, proof, pi)
+
+    def verify_committed(self, vk: VerifyingKey, proof: CommittedProof,
+                         public_inputs: list) -> bool:
+        """Verification with the commitment terms: the proof of knowledge
+        pins D to the committed basis, and the challenge public is
+        recomputed from D."""
+        if vk.k_challenge_g1 is None or proof.d is None or proof.pok is None:
+            return False
+        # PoK: e(pok, G2) == e(D, [eta] G2)
+        if not self.ctx.pairing_check(
+            [(proof.pok, self.g2.gen), (proof.d.neg(), vk.eta_g2)]
+        ):
+            return False
+        pi = self._public_sum(vk, public_inputs)
+        if pi is None:
+            return False
+        challenge = self.commitment_challenge(proof.d)
+        return self._check(
+            vk, proof, pi.add(vk.k_challenge_g1.mul(challenge)).add(proof.d))
+
+    def _check(self, vk: VerifyingKey, proof: Proof, pi) -> bool:
+        """The Groth16 pairing equation, with `pi` on the gamma side."""
         return self.ctx.pairing_check(
             [
                 (proof.a.neg(), proof.b),

@@ -21,10 +21,11 @@ REF, PORT = REPO / "davinci_tpu", REPO / "davinci_tpu_torch"
 
 VERBATIM = [
     "fields.py", "towers.py", "curves.py", "pairing.py", "log.py",
-    "spec.py", "ballotmode.py",
+    "spec.py", "ballotmode.py", "ethereum.py",
     "elgamal/__init__.py", "elgamal/bjj.py", "elgamal/core.py",
-    "groth16/r1cs.py",
+    "groth16/r1cs.py", "groth16/serialize.py",
     "circuits/__init__.py", "circuits/gadgets.py", "circuits/ballotproof.py",
+    "circuits/lookup.py", "circuits/emulated.py", "circuits/artifacts.py",
     "blobs/__init__.py", "blobs/setup.py", "state/blobcodec.py",
 ]
 
