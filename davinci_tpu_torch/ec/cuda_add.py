@@ -45,7 +45,7 @@ def rcb15_plain(curve, p, q):
                                      st([Y3, t1, t0, Z3, t3, t4]))
     X3 = f.sub_w(t2, X3)
     Y3, Z3 = f.add_w(st([t1, Z3]), st([Y3, t0]))
-    return tuple(from_wide(a) for a in (X3, Y3, Z3))
+    return tuple(from_wide(a, curve.df.L) for a in (X3, Y3, Z3))
 
 
 def rcb15_mixed_plain(curve, p, q):
@@ -70,7 +70,7 @@ def rcb15_mixed_plain(curve, p, q):
                                      st([Y3, t1, t0, Z3, t3, t4]))
     X3 = f.sub_w(t2, X3)
     Y3, Z3 = f.add_w(st([t1, Z3]), st([Y3, t0]))
-    return tuple(from_wide(a) for a in (X3, Y3, Z3))
+    return tuple(from_wide(a, curve.df.L) for a in (X3, Y3, Z3))
 
 
 def point_add(curve, p, q):

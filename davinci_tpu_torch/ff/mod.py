@@ -16,15 +16,19 @@ Boundary format (the reference's, so tensors compare element for element):
     canonical limbs of a value in [0, p).
 
 Inside, the arithmetic runs on "wide" limbs: pairs of 12-bit limbs packed
-into one 24-bit limb held in int64 (L is always even, `fields._limbs_for`),
-so R = 2^(24 L/2) exactly and a product column (L/2 products < 2^48) fits
-int64 with room to spare.  A limb convolution is one broadcast multiply
-and one float64 matmul that sums the anti-diagonals (PyTorch has no
-integer matmul on CUDA; float64 is exact at these sizes), or a single
-matmul with a Toeplitz matrix when one operand is a constant.  Carries resolve without data-dependent control
-flow: shift passes bound every column to one limb plus a carry bit, then a
-carry-lookahead over per-element bitmasks (generate/propagate, resolved
-by one integer addition) finishes exactly.
+into one 24-bit limb held in int64, n = ceil(L/2) of them, so a product
+column (n products < 2^48) fits int64 with room to spare.  At even L
+(`fields._limbs_for`) R = 2^(24 n) exactly.  At odd L (the toy curves'
+fields, on CPU tensors only: no kernel is built for them) the top wide
+limb holds 12 bits and R = 2^(24 n - 12), so a product first scales one
+operand by 2^12 and then reduces by 2^(24 n): REDC'(2^12 a b) = a b / R.
+A limb convolution is one broadcast multiply and one float64 matmul that
+sums the anti-diagonals (PyTorch has no integer matmul on CUDA; float64
+is exact at these sizes), or a single matmul with a Toeplitz matrix when
+one operand is a constant.  Carries resolve without data-dependent
+control flow: shift passes bound every column to one limb plus a carry
+bit, then a carry-lookahead over per-element bitmasks (generate/propagate,
+resolved by one integer addition) finishes exactly.
 """
 
 from __future__ import annotations
@@ -154,15 +158,25 @@ def carry_fix(cols: torch.Tensor, n_out: int) -> torch.Tensor:
 
 
 def to_wide(x: torch.Tensor) -> torch.Tensor:
-    """(..., L) 12-bit limbs -> (..., L/2) int64 24-bit limbs."""
+    """(..., L) 12-bit limbs -> (..., ceil(L/2)) int64 24-bit limbs (at
+    odd L the top one holds the last 12-bit limb alone)."""
     x = x.to(torch.int64)
+    if x.shape[-1] % 2:
+        x = Fn.pad(x, (0, 1))
     return x[..., 0::2] | (x[..., 1::2] << LIMB_BITS)
 
 
-def from_wide(w: torch.Tensor) -> torch.Tensor:
-    """(..., n) int64 24-bit limbs -> (..., 2n) int32 12-bit limbs."""
+def from_wide(w: torch.Tensor, L: int | None = None) -> torch.Tensor:
+    """(..., n) int64 24-bit limbs -> (..., L) int32 12-bit limbs: L = 2n
+    by default, 2n - 1 for an odd-L field (its top limb is then 0)."""
     parts = torch.stack((w & LIMB_MASK, w >> LIMB_BITS), dim=-1)
-    return parts.reshape(w.shape[:-1] + (2 * w.shape[-1],)).to(torch.int32)
+    out = parts.reshape(w.shape[:-1] + (2 * w.shape[-1],)).to(torch.int32)
+    return out if L is None or L == out.shape[-1] else out[..., :L]
+
+
+def _wide_const(v: int, n: int, device) -> torch.Tensor:
+    return torch.tensor([(v >> (WIDE_BITS * i)) & WIDE_MASK for i in range(n)],
+                        dtype=torch.int64, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -174,8 +188,9 @@ class DeviceField:
     """Batched Montgomery field arithmetic for one FieldSpec on one device.
 
     Public methods take and return (..., L) int32 Montgomery limbs.  The
-    `*_w` methods are the same operations on (..., L/2) int64 wide limbs;
-    compositions (point adds, NTT stages) stay wide between operations.
+    `*_w` methods are the same operations on (..., ceil(L/2)) int64 wide
+    limbs; compositions (point adds, NTT stages) stay wide between
+    operations.  An odd L is served on the CPU only.
     """
 
     coord_ndim = 1
@@ -184,14 +199,19 @@ class DeviceField:
     _MUL_CHUNK = 1 << 19
 
     def __init__(self, spec: FieldSpec, device="cuda"):
-        if spec.num_limbs % 2 or spec.num_limbs > 32:
-            # float64 limb products are exact up to 16 wide limbs
+        device = torch.device(device)
+        if spec.num_limbs > 32 or (spec.num_limbs % 2
+                                   and device.type != "cpu"):
+            # float64 limb products are exact up to 16 wide limbs; B6 is
+            # built for L = 22 and 32 only
             raise ValueError(
-                f"{spec.name}: {spec.num_limbs} limbs (need an even count <= 32)")
+                f"{spec.name}: {spec.num_limbs} limbs on {device.type} (need"
+                f" a count <= 32, even off the CPU)")
         self.spec = spec
-        self.device = torch.device(device)
+        self.device = device
         self.L = spec.num_limbs
-        self.n = self.L // 2
+        self.n = (self.L + 1) // 2
+        self._odd = self.L % 2 == 1
         self.p_limbs = self._t(spec.to_limbs_unreduced(spec.p))
         self.nprime_limbs = self._t(spec.to_limbs_unreduced(spec.n_prime))
         self.zero = torch.zeros(self.L, dtype=torch.int32, device=self.device)
@@ -199,7 +219,10 @@ class DeviceField:
         self.raw_one = self._t(spec.to_limbs(1))  # REDC(a * 1) = from_mont
         self.r2 = self._t(spec.to_limbs(spec.r2_mod_p))
         self._p_w = to_wide(self.p_limbs)
-        self._np_w = to_wide(self.nprime_limbs)
+        # -p^-1 mod 2^(24 n): R's n' at even L, the odd L's REDC radix
+        wide_r = 1 << (WIDE_BITS * self.n)
+        self._np_w = _wide_const(-pow(spec.p, -1, wide_r) % wide_r, self.n,
+                                 self.device)
         top = 1 << WIDE_BITS
         # borrow-free constants: x + bias - p over n+1 limbs (csub), and
         # a - b + p + bias over n limbs (sub); bias adds 2^24 to every limb
@@ -269,7 +292,8 @@ class DeviceField:
         """Montgomery reduction of t < R*p given as n or 2n wide limbs of at
         most 2^24 + 2^23 each (canonical, or `bound_limbs` output: only the
         value of t matters, and bounded limbs keep the products exact).
-        m = t * n' mod R is canonical, so (t + m p)/R < 2p."""
+        m = t * n' mod R is canonical, so (t + m p)/R < 2p.  R here is
+        2^(24 n), the field's R at even L."""
         n = self.n
         m = normalize(conv_const(t[..., :n], self._np_t), WIDE_BITS,
                       self._prod_bits)
@@ -280,13 +304,18 @@ class DeviceField:
         return self._csub_w(s[..., n:])
 
     def _mul_direct_w(self, a, b):
+        if self._odd:  # a < 2^(24 n - 12): a * 2^12 stays n canonical limbs
+            hi = a >> LIMB_BITS
+            a = (a & LIMB_MASK) << LIMB_BITS
+            a[..., 1:] |= hi[..., :-1]
         t = bound_limbs(conv_cols(a, b), WIDE_BITS, self._prod_bits)
         return self._redc_w(t)
 
     def mul_w(self, a, b):
         if a.device.type == "cpu":
             return self._chunked(self._mul_direct_w, a, b)
-        return to_wide(cuda_mul.mont_mul(self, from_wide(a), from_wide(b)))
+        return to_wide(cuda_mul.mont_mul(self, from_wide(a, self.L),
+                                         from_wide(b, self.L)))
 
     def add_w(self, a, b):
         # a + b < 2p < R, so n limbs suffice
@@ -312,19 +341,19 @@ class DeviceField:
     def mul_plain(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """The plain PyTorch Montgomery product (B6's plain version)."""
         return from_wide(self._chunked(self._mul_direct_w, to_wide(a),
-                                       to_wide(b)))
+                                       to_wide(b)), self.L)
 
     def square(self, a):
         return self.mul(a, a)
 
     def add(self, a, b):
-        return from_wide(self.add_w(to_wide(a), to_wide(b)))
+        return from_wide(self.add_w(to_wide(a), to_wide(b)), self.L)
 
     def sub(self, a, b):
-        return from_wide(self.sub_w(to_wide(a), to_wide(b)))
+        return from_wide(self.sub_w(to_wide(a), to_wide(b)), self.L)
 
     def neg(self, a):
-        return from_wide(self.neg_w(to_wide(a)))
+        return from_wide(self.neg_w(to_wide(a)), self.L)
 
     def double(self, a):
         return self.add(a, a)

@@ -96,7 +96,7 @@ class DeviceQuadExt:
         return self.df.add(a, a)
 
     def mul(self, a, b):
-        return from_wide(self.mul_w(to_wide(a), to_wide(b)))
+        return from_wide(self.mul_w(to_wide(a), to_wide(b)), self.df.L)
 
     def square(self, a):
         return self.mul(a, a)
@@ -114,9 +114,9 @@ class DeviceQuadExt:
         a0, a1 = w[..., 0, :], w[..., 1, :]
         sq = df.mul_w(torch.stack([a0, a1]), torch.stack([a0, a1]))
         norm = df.sub_w(sq[0], df.mul_w(self._nr_w, sq[1]))
-        ninv = to_wide(df.inv(from_wide(norm)))
+        ninv = to_wide(df.inv(from_wide(norm, df.L)))
         c = df.mul_w(torch.stack([a0, a1]), ninv)
-        return from_wide(torch.stack([c[0], df.neg_w(c[1])], dim=-2))
+        return from_wide(torch.stack([c[0], df.neg_w(c[1])], dim=-2), df.L)
 
 
 @functools.cache

@@ -443,7 +443,8 @@ class Groth16:
         challenge = self.commitment_challenge(D)
         refinalize = getattr(cs0, "_refinalize", None)
         if refinalize is not None:
-            refinalize(challenge)
+            with log.info_time("groth16.refinalize"):
+                refinalize(challenge)
             cs = cs0
         else:
             cs = build_fn(challenge, blind)
@@ -465,7 +466,9 @@ class Groth16:
         rng = rng or _random.Random()
         cs.values[cs.committed[-1]] = rng.randrange(self.r)  # blind wire
         D, pok = self._commit(pk, [cs.values[i] for i in cs.committed])
-        refinalize(self.commitment_challenge(D))
+        challenge = self.commitment_challenge(D)
+        with log.info_time("groth16.refinalize"):
+            refinalize(challenge)
         base = self.prove(pk, cs, r_rand=r_rand, s_rand=s_rand)
         return CommittedProof(a=base.a, b=base.b, c=base.c, d=D, pok=pok)
 

@@ -92,10 +92,10 @@ class DeviceNTT:
         for s in range(n.bit_length() - 1):
             u = w[..., :half, :]
             v = w[..., half:, :]
-            prod = df.mul(wpow[exps[s]], from_wide(df.sub_w(u, v)))
+            prod = df.mul(wpow[exps[s]], from_wide(df.sub_w(u, v), df.L))
             z = torch.cat([df.add_w(u, v), to_wide(prod)], dim=-2)
             w = z.index_select(-2, perm[s])
-        return from_wide(w)
+        return from_wide(w, df.L)
 
     def _wpow(self, w: int, n: int):
         return self.power_table(w, n // 2) if n > 1 else self.df.one_mont[None]

@@ -539,3 +539,18 @@ def test_addk_refuses_other_curves_and_device_mixes(dev):
 def test_addk_entry_point(dev, capsys):
     assert addk_exp.main(["1024", *addk_exp.KERNELS], device=dev) == 0
     assert len(capsys.readouterr().out.splitlines()) == 4
+
+
+def test_toy_fields_raise_on_the_card(dev):
+    """The toy BLS12 of the recursion tests has no kernel build: its Fr
+    (L = 5) is refused at construction and its Fp (L = 8) at its first
+    product; nothing falls back to the plain product."""
+    from davinci_tpu_torch.circuits.toycurve import toy_bls12
+    from davinci_tpu_torch.ff.mod import DeviceField
+
+    t = toy_bls12()
+    with pytest.raises(ValueError):
+        DeviceField(t["fr_spec"], dev)
+    df = DeviceField(t["fp_spec"], dev)
+    with pytest.raises(ValueError):
+        df.mul(df.one_mont, df.one_mont)

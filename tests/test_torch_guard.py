@@ -27,6 +27,10 @@ VERBATIM = [
     "circuits/__init__.py", "circuits/gadgets.py", "circuits/ballotproof.py",
     "circuits/lookup.py", "circuits/emulated.py", "circuits/artifacts.py",
     "blobs/__init__.py", "blobs/setup.py", "state/blobcodec.py",
+    "circuits/algebra.py", "circuits/keccak_gadget.py",
+    "circuits/xfield_hash.py", "circuits/ecdsa_gadget.py",
+    "circuits/pairing_gadget.py", "circuits/voteverifier.py",
+    "circuits/toycurve.py",
 ]
 
 
