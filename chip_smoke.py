@@ -7,7 +7,8 @@ Phases, one line of output each (any failure raises and exits non-zero):
 
   1. device: the card's name and power limit; build every CUDA kernel of
      `davinci_tpu_torch/csrc/` with nvcc, each source at L = 22 and
-     L = 32 (one process per library, all started together).
+     L = 32, and point_add.cu, bucket.cu and mont_mul.cu at L = 64 too
+     (BW6-761; one process per library, all started together).
   2. B1 (G1 point add) at L = 22 (BN254) and L = 32 (BLS12-381) on 2^16
      random sums plus edge cases and points rescaled near p - 1, on
      limb-major (L, n) planes (the scan path's entry) and through the row
@@ -74,8 +75,9 @@ Phases, one line of output each (any failure raises and exits non-zero):
      the addonly diagnostic): its `run_variant` for every variant at the
      experiment's n = 22 x 2,048, the third path (each variant must be
      launched) and each variant's instructions per add, IMAD-family and
-     multiplying, from `cuobjdump -sass`; then, at that n and at 2^20,
-     each variant against its plain version on the experiment's points
+     multiplying, from `cuobjdump -sass`; then, at that n (and at 2^20
+     with `--b3-b8`), each variant against its plain version on the
+     experiment's points
      plus the edge cases and points rescaled near p - 1, and v2d, lazy
      and kara against B1 on the same points; per variant the 30-launch
      chain's time (events, and device time from the profiler), the plain
@@ -89,7 +91,7 @@ Phases, one line of output each (any failure raises and exits non-zero):
      the sizes of pk.bin and vk.bin; [9c] `prove_and_verify_committed`,
      which must build once, and `verify_committed` false for public 8 and
      for pok replaced by D; [9d] the solved system saved and loaded, then
-     three `prove_committed_reuse` proofs, each verified, with their stage
+     one `prove_committed_reuse` proof, verified, with its stage
      times (the D and pok MSMs: `groth16.commit`), the launches of the
      kernels of this path (B1-B5, B7 and B5's G2 build at L = 32, B6 at
      L = 22: each must be launched) and peak device memory; [9e] a second
@@ -118,6 +120,31 @@ Phases, one line of output each (any failure raises and exits non-zero):
      against its plain version (B1-B5, B5's G2 build and B7 at L = 32, B6
      on BLS12-377's Fr, at c2's own shapes: every call must be equal),
      with the kernel's and the plain version's times on the largest.
+  11. BW6-761 and the aggregator (c3, the per-batch proof): [11a] B1-B6
+     at L = 64 against their plain versions: B1 on both groups (G1,
+     b = -1, and G2, b = 4, both over the 761-bit Fp) on planes and rows
+     with edge cases and points rescaled near p - 1 (timed at 22, 45,056
+     and 2^16 adds), B6 on BW6-761's Fp (2^16 products, 0, 1, p - 1, raw
+     values up to R - 1, broadcast, repeating and offset operands), and a
+     4,096-point G1 and G2 MSM through `msm` (the scan path for both)
+     against host oracles, whose B1 planes and B2-B5 calls are held
+     against their plain versions (B4 against its split order; B2 on
+     G1's 3b = -3) with event, device, plain and bound times and ptxas's
+     registers and spills; then, inside phase 10's store: [11b] c3 at the
+     sequencer's default of 4 slots (`provers.py:59`), production shape
+     (`inner_committed`), from phase 10's c2 key, with phase 10's proof
+     and vote hash in slot 0 and as the padding of slots 1-3 (the latch
+     mask marks one real vote: the circuit is the one the canonical dummy
+     gives), its constraint and variable counts; [11c]
+     `ArtifactStore.load_or_setup(..., "bw6_761", cs)` on the card, with
+     the sizes of pk.bin and vk.bin, the domain and the setup's launches
+     (B1 and B6 at L = 64 must be launched); [11d] `prove_and_verify`,
+     and `verify` false with the batch hash + 1, with the stage times
+     (witness, quotient NTT, MSMs, the rest), peak device memory and the
+     launches of B1-B5 at L = 64 and B6 at L = 32 (each must be
+     launched); the prove keeps the first and the largest call of each
+     kernel wrapper and replays them against their plain versions (every
+     call equal).
 
 The line before the last is a JSON object with one entry per kernel (B8:
 per variant) and limb count, with its registers and spills from ptxas;
@@ -152,6 +179,23 @@ steady reuse proves, and a second store on the same directory that must
 load with no setup, then prove and verify, each with 10d's record (the
 replay against the plain versions is 10d's alone).
 
+    python3 chip_smoke.py --l64
+
+builds the L = 64 libraries and runs [11a] alone.
+
+    python3 chip_smoke.py --c3
+
+runs phases 5 and 10 (phase 10's prove without the replay), then the
+aggregator at full size, `VOTES_PER_BATCH` = 60 slots: the canonical
+dummy vote (`sequencer/provers.py:162-190`: a c2 proof, under c2's key,
+of the fixed dummy witness; the production c2 verifies an inner proof,
+so the dummy carries phase 5's c1 proof and inputs hash) [11e], c3 with
+phase 10's proof as the one real vote and the dummy in the other 59
+slots [11b], setup through the store [11c], `prove_and_verify` [11d]
+and two more proves [11f], each verified and refused with the batch
+hash + 1, and a second store on the same directory that must load with
+no setup, then prove and verify [11g] (no kernel replay).
+
     python3 chip_smoke.py --c2-size
 
 runs phase 9 alone with committed-377 grown to 23,000 products (3.39M
@@ -168,7 +212,9 @@ programming guide's throughput table for compute capability 9.0).  The
 multiplies are counted from csrc/field.cuh (`mults_per_mul`): with N
 words and REM radix bits left, a field mul is N^2 + N^2 32x32->64
 products and N low halves, with a REM step N + 1 more (145 at L = 22,
-300 at L = 32; B6 reads a raw operand of N + 1 words at L = 22, 153); a
+300 at L = 32, 1,176 at L = 64: N = 24, no REM step; B6 reads a raw
+operand of N + 1 words at L = 22, 153); BW6-761's G1 and G2 adds are
+both Fp adds; a
 complete add (RCB15 Alg 7) is 14 field muls, a mixed add (Alg 8) 13, a
 G2 add 14 Fp2 muls of 3 each.  Every B8 variant stands on the strict
 add's count, the one yardstick of the four; addonly, which multiplies
@@ -409,7 +455,7 @@ def edge_cases(dc, base):
 B1_SIZES = (22, 22 * 2048, 1 << 16)  # the combine's, the merge's, 2^16
 
 
-def b1_phase(dev, name, k=256):
+def b1_phase(dev, name, k=256, tag="[2]"):
     """B1 (the build for the curve's L) against its plain version on k*k
     random sums plus the edge and near-p cases, on limb-major planes and
     through the row wrapper (`DeviceCurve.add`); a few results and every
@@ -460,13 +506,13 @@ def b1_phase(dev, name, k=256):
             "plain_ms": cuda_ms(lambda: cuda_add.rcb15_plain(
                 dc, tuple(x.T for x in a), tuple(x.T for x in b)), 3),
             "bound_ms": bound_ms, "bound_by": bound_by}
-        say(f"[2] {kernel.name} on planes {out['planes'][m]}")
+        say(f"{tag} {name} {kernel.name} on planes {out['planes'][m]}")
     run = lambda: dc.add(pts, other)
     bound_ms, bound_by = bound(9 * n * L * 4, n, "add", L)
     out["rows"] = {"n": n, "ms": cuda_ms(run, 20),
                    "device_ms": device_ms(run, 20, "point_add_rows_kernel"),
                    "bound_ms": bound_ms, "bound_by": bound_by}
-    say(f"[2] {kernel.name} through the rows {out['rows']}")
+    say(f"{tag} {name} {kernel.name} through the rows {out['rows']}")
     return out
 
 
@@ -968,8 +1014,8 @@ def ballot_circuit():
     return cs, [bw.inputs_hash()], build_s, bw.vote_id
 
 
-def mont_mul_phase(dev, n=1 << 16):
-    """B6 against its plain version for every field it is built for:
+def mont_mul_phase(dev, n=1 << 16, names=B6_FIELDS, tag="[6]"):
+    """B6 against its plain version for each field of `names`:
     random elements, 0, 1, p - 1, and raw values up to R - 1 through
     to_mont on either side; kernel and plain times on the random pairs."""
     import numpy as np
@@ -981,7 +1027,7 @@ def mont_mul_phase(dev, n=1 << 16):
 
     res = {}
     rng = random.Random(SEED + 6)
-    for name in B6_FIELDS:
+    for name in names:
         spec = getattr(F, name)
         df = get_device_field(spec, dev)
         L, p = df.L, spec.p
@@ -1021,7 +1067,7 @@ def mont_mul_phase(dev, n=1 << 16):
                      "ms": ms, "device_ms": dev_ms, "host_us": host_us,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by}
-        say(f"[6] {name} {res[name]}")
+        say(f"{tag} {name} {res[name]}")
     return res
 
 
@@ -1104,10 +1150,11 @@ def blob_phase(dev, kernels, rng, rng_np, regs):
     return out, res
 
 
-def addk_phase(dev):
+def addk_phase(dev, sizes=ADDK_SIZES):
     """Phase 8: the point-add experiment's entry path, then each B8
-    variant against its plain version and B1; returns ({kernel name:
-    result at the experiment's n}, {variant: launches})."""
+    variant against its plain version and B1 at each n of `sizes`;
+    returns ({kernel name: result at the experiment's n}, {variant:
+    launches})."""
     import torch
 
     from davinci_tpu_torch import cuda_build
@@ -1134,7 +1181,7 @@ def addk_phase(dev):
     say(f"[8] cuobjdump -sass per add (one add a thread): {sass}")
 
     res = {}
-    for n in ADDK_SIZES:
+    for n in sizes:
         pts, a, b = addk_exp.experiment_points(dc, n)
         hard_a, hard_b = addk_exp.hard_cases(dc, pts)
         rows_a = tuple(torch.cat(c) for c in zip(a, hard_a))
@@ -1308,7 +1355,7 @@ def committed_377(chain, challenge=0, blind=0):
     return cs
 
 
-def committed_phase(dev, stages, chain=COMMITTED_CHAIN, steady=3):
+def committed_phase(dev, stages, chain=COMMITTED_CHAIN, steady=1):
     """Phase 9: the sequencer's per-vote prover on the port's own modules.
     committed-377 set up on the card through the artifact store (under
     build/, removed at the end), a first committed prove (one build), its
@@ -1477,6 +1524,41 @@ def bls381_phase(dev):
     return out
 
 
+L64_CURVES = ("bw6_g1", "bw6_g2")  # BW6-761: both groups over the 761-bit Fp
+
+
+def l64_phase(dev, rng_np, regs):
+    """[11a] B1-B6 at L = 64 (BW6-761) against their plain versions: B1 on
+    both groups' random sums, edge cases and points rescaled near p - 1
+    (planes and rows); B6 on BW6-761's Fp; then a 4,096-point G1 MSM and
+    a G2 MSM through `msm` (the scan path for both groups), each equal to
+    its host oracle, with B1's first planes and B2-B5's calls recorded and
+    held against their plain versions (B4 against its split order).
+    Returns {kernel name: result} (G1's calls for B1-B5)."""
+    from davinci_tpu_torch import curves as C
+    from davinci_tpu_torch import kernels as K
+    from davinci_tpu_torch.msm import msm
+
+    res = {}
+    b1 = {name: b1_phase(dev, name, tag="[11a]") for name in L64_CURVES}
+    res[K.B1_L64.name] = b1["bw6_g1"]["planes"][B1_SIZES[1]]
+    res[K.B6_L64.name] = mont_mul_phase(
+        dev, names=("bw6_761_fp",), tag="[11a]")["bw6_761_fp"]
+    for name in L64_CURVES:
+        case = tiled_msm_case(dev, rng_np, n=4096, spec=getattr(C, name))
+        with Capture(Capture.WRAPPERS + ("point_add_planes",)) as cap:
+            out = msm_phase(msm, case)
+        check(sorted(cap.calls) == sorted(cap.names), "B1-B5 recorded")
+        say(f"[11a] 4,096-point {name} MSM through msm equal to the host "
+            f"oracle: {out}")
+        add_name, add = captured_add_phase(cap.args)
+        say(f"[11a] {name} {add_name} on the MSM's planes {add}")
+        kernels = scan_kernels_phase(cap.calls, regs, f"[11a] {name}")
+        if name == "bw6_g1":  # G1: 3b = -3, B2's negated small 3b
+            res.update(kernels)
+    return res
+
+
 C2_ID = "voteverifier-c2"
 C2_PROCESS_ID = 12345
 C2_CONSTRAINTS = 3437706  # the reference's full-size build (BENCH_NOTES.md)
@@ -1530,7 +1612,7 @@ def c2_reuse_prove(rt, cs, stages, tag, replay=False):
     With `replay`, the first and the largest call of each kernel wrapper
     are kept (their inputs stay on the card to the end of the prove, so
     the peak counts them) and made again against their plain versions
-    (`replay_phase`)."""
+    (`replay_phase`).  Returns (the record, the proof)."""
     import contextlib
 
     import torch
@@ -1574,14 +1656,15 @@ def c2_reuse_prove(rt, cs, stages, tag, replay=False):
         rec["kernels"] = replay_phase(cap, tag)
         rec["replay_s"] = time.perf_counter() - t0
         del cap
-    return rec
+    return rec, proof
 
 
-def c2_phase(stages, c1, root):
+def c2_phase(stages, c1, root, replay=True):
     """Phase 10: the production vote verifier (c2) from phase 5's c1 proof:
     the witness [10a], one host build [10b], setup on the card through the
-    store under `root` [10c], one steady reuse prove [10d].  Returns
-    (results, the runtime, the built system, the build function)."""
+    store under `root` [10c], one steady reuse prove [10d] (its kernel
+    calls replayed where `replay`).  Returns (results, the runtime, the
+    built system, the build function, 10d's proof, c2's parameters)."""
     import torch
 
     from davinci_tpu_torch import kernels as K
@@ -1627,8 +1710,181 @@ def c2_phase(stages, c1, root):
         f"{out['setup_s']:.3f} s (setup {out['artifacts_setup_s']} s), "
         f"domain 2^{out['domain_log']}, pk.bin {out['pk_bin_bytes']} B, "
         f"vk.bin {out['vk_bin_bytes']} B, structure {out['structure_hash']}")
-    out["steady"] = [c2_reuse_prove(rt, cs, stages, "[10d]", replay=True)]
-    return out, rt, cs, build
+    rec, proof = c2_reuse_prove(rt, cs, stages, "[10d]", replay=replay)
+    out["steady"] = [rec]
+    return out, rt, cs, build, proof, params
+
+
+C3_SLOTS = 4  # the sequencer's default batch (provers.py:59, n_votes_agg)
+C3_STAGES = ("groth16.witness_reduce_dev", "groth16.quotient_ntt",
+             "groth16.msms")
+# the kernels of a BW6-761 prove: both groups' MSMs on the scan path at
+# L = 64 (B1-B5), every Fr product of the witness and the NTT (B6 at
+# L = 32: BW6-761's Fr is BLS12-377's Fp); of its setup: the curves' rows
+# (B1) and the Fp products (B6 at L = 64)
+C3_PROVE_KERNELS = ("point_add_g1_l64", "bucket_scan_g1_l64",
+                    "bucket_reduce_g1_l64", "suffix_reduce_g1_l64",
+                    "horner_g1_l64", "mont_mul_l32")
+C3_SETUP_KERNELS = ("point_add_g1_l64", "mont_mul_l64")
+# the kernel wrappers a BW6-761 prove reaches (no Fp2 group)
+C3_WRAPPERS = tuple(name for name in Capture.PROVE
+                    if name not in ("point_add_fp2", "horner_g2_kernel"))
+
+
+def c3_build(c2_vk, vote, dummy, n_votes, tag):
+    """[11b] the aggregator (c3) over `n_votes` slots, production shape
+    (BW6-761, `inner_committed`: the c2 proofs carry the commitment
+    extension): `vote`, (proof, vote hash), in slot 0 and `dummy` in the
+    others.  Returns (its parameters, the built system, results)."""
+    from davinci_tpu_torch.circuits.aggregator import (
+        AggregatorParams,
+        AggregatorWitness,
+        batch_hash,
+        build_aggregator_circuit,
+    )
+
+    params = AggregatorParams(inner_vk=c2_vk, dummy_proof=dummy[0],
+                              dummy_public=dummy[1], n_votes=n_votes,
+                              inner_committed=True)
+    w = AggregatorWitness(vote_hashes=[vote[1]], proofs=[vote[0]])
+    t0 = time.perf_counter()
+    cs = build_aggregator_circuit(params, w)
+    out = {"slots": n_votes, "build_s": time.perf_counter() - t0,
+           "constraints": len(cs.constraints), "variables": cs.num_variables,
+           "batch_hash": hex(batch_hash(params, w))}
+    check(cs.public_values() == [batch_hash(params, w)],
+          "c3's public value is the batch hash")
+    say(f"{tag} c3 built ({n_votes} slots, one real vote): "
+        f"{out['constraints']} constraints, {out['variables']} variables in"
+        f" {out['build_s']:.3f} s, batch hash {out['batch_hash']}")
+    return params, cs, out
+
+
+def c3_setup(params, cs, root, stages, tag):
+    """[11c] c3 set up on the card through the store under `root`: sizes
+    of pk.bin and vk.bin, the domain, the setup's launches (B1 and B6 at
+    L = 64 must be launched).  Returns (the runtime, results)."""
+    import torch
+
+    from davinci_tpu_torch import kernels as K
+    from davinci_tpu_torch.circuits.artifacts import ArtifactStore
+
+    cid = params.circuit_id()
+    for k in K.KERNELS:
+        k.launches = 0
+    stages.took.clear()
+    t0 = time.perf_counter()
+    rt = ArtifactStore(root).load_or_setup(cid, "bw6_761", cs)
+    torch.cuda.synchronize()
+    out = {"setup_s": time.perf_counter() - t0,
+           "artifacts_setup_s": stages.took.get("artifacts.setup"),
+           "pk_bin_bytes": (root / cid / "pk.bin").stat().st_size,
+           "vk_bin_bytes": (root / cid / "vk.bin").stat().st_size,
+           "domain_log": rt.pk.domain_log,
+           "structure_hash": rt.structure_hash,
+           "setup_launches": {k.name: k.launches for k in K.KERNELS
+                              if k.launches}}
+    check(out["artifacts_setup_s"] is not None, "c3's store ran its setup")
+    check(rt.g16.device.type == "cuda", "c3's Groth16 is on the card")
+    for name in C3_SETUP_KERNELS:
+        check(out["setup_launches"].get(name, 0) > 0,
+              f"{name} was not launched by c3's setup")
+    say(f"{tag} c3 set up on the card through the store: "
+        f"{out['setup_s']:.3f} s (setup {out['artifacts_setup_s']} s), "
+        f"domain 2^{out['domain_log']}, pk.bin {out['pk_bin_bytes']} B, "
+        f"vk.bin {out['vk_bin_bytes']} B, launches {out['setup_launches']}")
+    return rt, out
+
+
+def c3_prove(rt, cs, stages, tag, replay=False):
+    """[11d] `prove_and_verify` of c3, and `verify` false with the batch
+    hash + 1: the stage times (witness, quotient NTT, MSMs, the rest of
+    the prove), the launches of B1-B5 at L = 64 and B6 at L = 32 (each
+    must be launched) and peak device memory.  With `replay`, the first
+    and the largest call of each kernel wrapper are kept and made again
+    against their plain versions (`replay_phase`)."""
+    import contextlib
+
+    import torch
+
+    from davinci_tpu_torch import kernels as K
+
+    stages.took.clear()
+    for k in K.KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    cap = Capture(C3_WRAPPERS, largest=True)
+    t0 = time.perf_counter()
+    with cap if replay else contextlib.nullcontext():
+        proof = rt.prove_and_verify(cs)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    prove_s = stages.took.get("circuit.prove")
+    rec = {"prove_and_verify_s": total, "prove_s": prove_s,
+           "verify_s": total - prove_s if prove_s is not None else None,
+           "stages_s": {name: stages.took.get(name) for name in C3_STAGES},
+           "launches": {k.name: k.launches for k in K.KERNELS
+                        if k.name in C3_PROVE_KERNELS},
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "inputs_held_for_replay": replay}
+    rec["rest_s"] = (prove_s or total) - sum(
+        v or 0 for v in rec["stages_s"].values())
+    for name, n in rec["launches"].items():
+        check(n > 0, f"{name} was not launched by c3's prove")
+    public = cs.public_values()
+    check(not rt.verify(proof, [public[0] + 1]),
+          f"{tag} c3 proof verifies with the batch hash + 1")
+    say(f"{tag} c3 prove_and_verify, false for the batch hash + 1: "
+        f"{json.dumps(rec)}")
+    if replay:
+        # B1's rows serve setup, which a prove may not reach
+        missing = set(cap.names) - set(cap.calls) - {"point_add"}
+        check(not missing, f"c3's prove called no {sorted(missing)}")
+        t0 = time.perf_counter()
+        rec["kernels"] = replay_phase(cap, tag)
+        rec["replay_s"] = time.perf_counter() - t0
+        del cap
+    return rec
+
+
+def c3_phase(stages, c2_vk, vote, dummy, root, n_votes=C3_SLOTS,
+             replay=True):
+    """Phase 11b-11d: c3 built [11b], set up through the store under
+    `root` [11c], proved and verified [11d].  Returns (results, the
+    runtime, the built system, its parameters)."""
+    params, cs, out = c3_build(c2_vk, vote, dummy, n_votes, "[11b]")
+    rt, setup = c3_setup(params, cs, root, stages, "[11c]")
+    out.update(setup)
+    out["prove"] = [c3_prove(rt, cs, stages, "[11d]", replay=replay)]
+    return out, rt, cs, params
+
+
+def c3_dummy(c2_rt, c2_params, c1, tag):
+    """The canonical dummy vote (`sequencer/provers.py:162-190`): a c2
+    proof, under c2's key, of the fixed dummy witness (process 0, signing
+    key 1, vote id 2^63).  The production c2 verifies an inner proof,
+    which the reference's dummy leaves out (`ballot_proof=None`, which
+    its inner-proof tier cannot build), so the dummy carries phase 5's c1
+    proof and inputs hash.  Returns (the proof, its vote hash)."""
+    from davinci_tpu_torch.circuits.voteverifier import (
+        build_vote_verifier_circuit,
+        make_vote_verifier_witness,
+        witness_vote_hash,
+    )
+
+    w = make_vote_verifier_witness(
+        c2_params, process_id=0, priv_sig_key=1,
+        inputs_hash=c1["inputs_hash"], ballot_proof=c1["proof"],
+        vote_id=1 << 63)
+    vote_hash = witness_vote_hash(c2_params, w)
+    t0 = time.perf_counter()
+    proof = c2_rt.prove_and_verify_committed(
+        lambda ch, bl: build_vote_verifier_circuit(c2_params, w, ch, bl),
+        [vote_hash])
+    say(f"{tag} the dummy vote's c2 proof, verified, in "
+        f"{time.perf_counter() - t0:.3f} s (one build): vote hash "
+        f"{vote_hash:#x}")
+    return proof, vote_hash
 
 
 def c1_phase(dev, stages, kernels):
@@ -1674,7 +1930,7 @@ def c2_only():
     (ROOT / "build").mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="store-", dir=ROOT / "build"))
     try:
-        out, rt, cs, build = c2_phase(stages, inner, root)
+        out, rt, cs, build, _, _ = c2_phase(stages, inner, root)
         public = cs.public_values()
         del cs
         built = []
@@ -1690,7 +1946,7 @@ def c2_only():
         cs = built.pop()
         say(f"[10e] prove_and_verify_committed: "
             f"{out['first_prove_and_verify_s']:.3f} s (one build)")
-        out["steady"] += [c2_reuse_prove(rt, cs, stages, f"[10e] {i}")
+        out["steady"] += [c2_reuse_prove(rt, cs, stages, f"[10e] {i}")[0]
                           for i in range(2)]
 
         stages.took.clear()
@@ -1699,13 +1955,99 @@ def c2_only():
               and "artifacts.setup" not in stages.took,
               "the second store loaded c2's key with no setup")
         out["second_store_load_s"] = stages.took["artifacts.load"]
-        out["second_store"] = c2_reuse_prove(rt2, cs, stages, "[10f]")
+        out["second_store"] = c2_reuse_prove(rt2, cs, stages, "[10f]")[0]
         say(f"[10f] a second store loaded c2's key with no setup in "
             f"{out['second_store_load_s']} s, proved and verified")
     finally:
         shutil.rmtree(root)
     out["run_s"] = time.perf_counter() - t_run
     say(json.dumps({"c2": out}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def l64_only():
+    """Phase 1 for the L = 64 libraries and [11a] alone: B1-B6 at L = 64
+    against their plain versions, with ptxas's registers and spills."""
+    import numpy as np
+    import torch
+
+    from davinci_tpu_torch import cuda_build
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_run = time.perf_counter()
+    device_line()
+    regs = build_phase([(src, cuda_build.WIDE_LIMBS)
+                        for src in cuda_build.WIDE_SOURCES])
+    res = l64_phase(dev, np.random.default_rng(SEED), regs)
+    say(json.dumps({"l64": res, "run_s": time.perf_counter() - t_run}))
+    return 0
+
+
+def c3_only():
+    """Phases 5 and 10, then the aggregator (c3) at full size, the
+    sequencer's `VOTES_PER_BATCH` slots: the canonical dummy vote's c2
+    proof [11e], phase 10's proof as the one real vote, the build [11b],
+    setup through the store [11c], `prove_and_verify` [11d] and two more
+    proves [11f], each verified, then a second store on the same
+    directory that must load with no setup, prove and verify [11g] (no
+    kernel replay)."""
+    import tempfile
+
+    import torch
+
+    from davinci_tpu_torch import cuda_build
+    from davinci_tpu_torch import kernels as K
+    from davinci_tpu_torch import log
+    from davinci_tpu_torch import spec as protocol
+    from davinci_tpu_torch.circuits.artifacts import ArtifactStore
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_run = time.perf_counter()
+    device_line()
+    build_phase([(src, limbs) for src in cuda_build.WIDE_SOURCES
+                 for limbs in cuda_build.limbs_of(src)])
+    stages = StageTimes()
+    log.init()
+    logging.getLogger("davinci").addHandler(stages)
+    c1_kernels = [k for k in K.KERNELS if k.limbs == 22
+                  and k not in K.B8.values()]
+    _, inner, _ = c1_phase(dev, stages, c1_kernels)
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="store-", dir=ROOT / "build"))
+    try:
+        c2, c2_rt, c2_cs, _, c2_proof, c2_params = c2_phase(
+            stages, inner, root, replay=False)
+        say(f"[10] summary {json.dumps(c2)}")
+        vote = (c2_proof, c2_cs.public_values()[0])
+        del c2_cs
+        dummy = c3_dummy(c2_rt, c2_params, inner, "[11e]")
+        c2_vk = c2_rt.vk
+        del c2_rt
+        out, rt, cs, params = c3_phase(stages, c2_vk, vote, dummy, root,
+                                       n_votes=protocol.VOTES_PER_BATCH,
+                                       replay=False)
+        out["prove"] += [c3_prove(rt, cs, stages, f"[11f] {i}")
+                         for i in range(2)]
+        del rt
+        stages.took.clear()
+        rt2 = ArtifactStore(root).load_or_setup(params.circuit_id(),
+                                                "bw6_761", cs)
+        check("artifacts.load" in stages.took
+              and "artifacts.setup" not in stages.took,
+              "the second store loaded c3's key with no setup")
+        out["second_store_load_s"] = stages.took["artifacts.load"]
+        out["second_store"] = c3_prove(rt2, cs, stages, "[11g]")
+        say(f"[11g] a second store loaded c3's key with no setup in "
+            f"{out['second_store_load_s']} s, proved and verified")
+    finally:
+        shutil.rmtree(root)
+    out["run_s"] = time.perf_counter() - t_run
+    say(json.dumps({"c3": out}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1729,7 +2071,7 @@ def committed_only():
     stages = StageTimes()
     log.init()
     logging.getLogger("davinci").addHandler(stages)
-    out, _, _ = committed_phase(dev, stages, COMMITTED_CHAIN_C2, steady=1)
+    out, _, _ = committed_phase(dev, stages, COMMITTED_CHAIN_C2)
     out["run_s"] = time.perf_counter() - t_run
     say(json.dumps({"committed_c2_size": out}))
     return 0
@@ -1917,6 +2259,10 @@ def main(argv) -> int:
         return committed_only()
     if argv == ["--c2"]:
         return c2_only()
+    if argv == ["--l64"]:
+        return l64_only()
+    if argv == ["--c3"]:
+        return c3_only()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -1978,8 +2324,11 @@ def main(argv) -> int:
     blob, blob_res = blob_phase(dev, kernels32, rng, rng_np, regs)
     res.update(blob_res)
     say(f"[7] blob summary {json.dumps(blob)}")
-    addk_res, addk_launches = addk_phase(dev)
+    # phase 8 at the experiment's n alone: the default run's time goes to
+    # phase 11 (`--b3-b8` runs phase 8 at both sizes)
+    addk_res, addk_launches = addk_phase(dev, ADDK_SIZES[:1])
     res.update(addk_res)
+    res.update(l64_phase(dev, rng_np, regs))
     committed, rt, lo = committed_phase(dev, stages)
     committed["kernels"] = committed_kernels_phase(rt, lo)
     del rt, lo
@@ -1988,14 +2337,26 @@ def main(argv) -> int:
     (ROOT / "build").mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="store-", dir=ROOT / "build"))
     try:
-        c2 = c2_phase(stages, inner, root)[0]
+        c2, c2_rt, c2_cs, _, c2_proof, _ = c2_phase(stages, inner, root)
+        say(f"[10] summary {json.dumps(c2)}")
+        # c3 aggregates phase 10's proof; the same proof and vote hash pad
+        # the other slots (the circuit is the one the canonical dummy
+        # gives), and the latch mask marks one real vote
+        vote = (c2_proof, c2_cs.public_values()[0])
+        c2_vk = c2_rt.vk
+        del c2_rt, c2_cs
+        c3 = c3_phase(stages, c2_vk, vote, vote, root)[0]
     finally:
         shutil.rmtree(root)
-    say(f"[10] summary {json.dumps(c2)}")
+    say(f"[11] summary {json.dumps(c3)}")
 
     say(f"whole run: {time.perf_counter() - t_run:.1f} s")
+    # L = 64: B1-B5 per c3 prove, B6 (Fp) per c3 setup
     launches = {**c1["steady_launches"], **blob["launches"], **addk_launches,
-                **g2_msm["launches"]}
+                **g2_msm["launches"],
+                K.B6_L64.name: c3["setup_launches"][K.B6_L64.name],
+                **{name: n for name, n in c3["prove"][0]["launches"].items()
+                   if name.endswith("_l64")}}
     say(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "limbs": k.limbs,

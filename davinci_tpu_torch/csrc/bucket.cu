@@ -1,5 +1,6 @@
 // The bucket-scan MSM path's kernels, built once per limb count
-// (-DDAVINCI_L): L = 22 (BN254) and L = 32 (BLS12-381/377):
+// (-DDAVINCI_L): L = 22 (BN254), L = 32 (BLS12-381/377) and L = 64 (BW6-761
+// G1 and G2, both over Fp; B5's G2 build serves Fp2 and is left out there):
 //
 //   B2 davinci_bucket_scan_g1    replaces davinci_tpu/msm/bucket_kernel.py
 //                                ::_scan_kernel (sorted-stream bucket scan)
@@ -79,7 +80,8 @@ __device__ __forceinline__ void set_identity(F& X, F& Y, F& Z,
 // (consecutive threads on consecutive words), each group folds its point
 // into its accumulator (in shared memory), and each warp writes its lanes'
 // rows, nw * 3L consecutive words, with consecutive threads on consecutive
-// words.  The curve's 3b must be small (Consts::b3_small, not 0).
+// words.  The curve's 3b must be small or the negative of a small one
+// (Consts::b3_small not 0; b3_neg for BW6-761 G1).
 constexpr int SCAN_WARPS = 4;
 constexpr int SCAN_LANES = SCAN_WARPS * GROUPS;
 
@@ -418,6 +420,8 @@ __global__ void __launch_bounds__(32)
   }
 }
 
+#if DAVINCI_L <= 32  // Fp2 only: no Fp2 curve has L = 64
+
 // B5 on G2 (the fused route's Horner): s*: (W * B, 2L) window-major rows
 // (window w, batch b at row w * B + b); o*: (B, 2L).  The same walk with
 // B7's six-thread G2 add (group6.cuh's add6_g2) on rows in shared memory.
@@ -459,6 +463,8 @@ __global__ void __launch_bounds__(32)
     for (int i = r; i < 3 * ROW2; i += GROUP)
       dst[i / ROW2][bi * ROW2 + i % ROW2] = h.t[i / ROW2][i % ROW2];
 }
+
+#endif  // DAVINCI_L <= 32
 
 Cst consts_of(const uint32_t* words) {
   Cst c;
@@ -509,6 +515,12 @@ extern "C" int davinci_suffix_reduce_g1(const int32_t* s, int32_t* a,
     return (int)cudaErrorInvalidValue;
   const long long G = THREADS / P;  // lanes per block
   const size_t shared = sizeof(uint32_t) * 6 * N * P * G;
+  if (shared > 48 * 1024) {  // L = 64: 73,728 B, past the default 48 KB
+    const cudaError_t e = cudaFuncSetAttribute(
+        suffix_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)shared);
+    if (e != cudaSuccess) return (int)e;
+  }
   suffix_reduce_kernel<<<(unsigned)((M + G - 1) / G), (unsigned)(P * G),
                          shared, (cudaStream_t)stream>>>(
       s, a, b, consts_of(consts), K, M, (int)T, (int)P, (int)G);
@@ -527,6 +539,7 @@ extern "C" int davinci_horner_g1(const int32_t* sx, const int32_t* sy,
   return (int)cudaGetLastError();
 }
 
+#if DAVINCI_L <= 32
 extern "C" int davinci_horner_g2(const int32_t* sx, const int32_t* sy,
                                  const int32_t* sz, int32_t* ox, int32_t* oy,
                                  int32_t* oz, const uint32_t* consts,
@@ -538,3 +551,4 @@ extern "C" int davinci_horner_g2(const int32_t* sx, const int32_t* sy,
                                              consts_of(consts), W, B, wbits);
   return (int)cudaGetLastError();
 }
+#endif  // DAVINCI_L <= 32

@@ -3,7 +3,8 @@
 // product, complete projective point addition (RCB15 Algorithm 7, a = 0)
 // and the complete mixed addition (RCB15 Algorithm 8, a = 0, second point
 // affine).  Everything is a template on L; a kernel source picks its
-// instantiation with -DDAVINCI_L (cuda_build.py builds L = 22 and L = 32).
+// instantiation with -DDAVINCI_L (cuda_build.py builds L = 22 and L = 32,
+// and L = 64, BW6-761's Fp, for the sources of that curve's path).
 //
 // Boundary: a field element is L int32 12-bit limbs, least significant
 // first, in Montgomery form with the reference's radix R = 2^(12 L); limb j
@@ -16,10 +17,11 @@
 // 2^(32 N), followed, when the radix has REM = 12 L - 32 N bits left (8 at
 // L = 22), by one reduction step over them (m = t * -p^-1 mod 2^REM,
 // t = (t + m p) >> REM): exact Montgomery reduction by R, so no conversion
-// of the reference's Montgomery values is needed.  At L = 32, R = 2^384
-// falls on the word rounds and the step disappears.  A modulus below
-// 2^(32 N - 1) (255 bits at L = 22, 383 at L = 32) keeps every sum below
-// 2p inside N words; the wrappers refuse larger ones.
+// of the reference's Montgomery values is needed.  At L = 32 and 64,
+// R = 2^384 and 2^768 fall on the word rounds (N = 12 and 24) and the step
+// disappears.  A modulus below 2^(32 N - 1) (255 bits at L = 22, 383 at
+// L = 32, 767 at L = 64: BW6-761's p has 761) keeps every sum below 2p
+// inside N words; the wrappers refuse larger ones.
 
 #pragma once
 
@@ -46,8 +48,9 @@ struct Consts {
   uint32_t np0;                 // -p^-1 mod 2^32
   uint32_t nr_is_m1;            // nr == -1: c0 = t0 - t1
   uint32_t one[Radix<L>::N];    // 1 in Montgomery form (R mod p)
-  uint32_t b3_small;            // G1: 3b as an integer where below 2^8,
+  uint32_t b3_small;            // G1: |3b| as an integer where below 2^8,
                                 // else 0 (group6.cuh)
+  uint32_t b3_neg;              // 3b = -b3_small (BW6-761 G1: b = -1)
 };
 
 template <int L_>
@@ -245,7 +248,8 @@ __device__ __forceinline__ void mont_mul(Fp<L>& r, const uint32_t (&a)[NA],
 
 // Beyond 8 words the product is a called function: a fully unrolled
 // product at L = 32 is 12 x 25 multiply-adds, and nvcc crashed on kernels
-// with two point adds (26 products) inlined.
+// with two point adds (26 products) inlined.  At L = 64 (24 x 49) the
+// same function.
 template <int L>
 __device__ __noinline__ Fp<L> mul_call(const Fp<L> a, const Fp<L> b,
                                        const Consts<L>& c) {
@@ -388,5 +392,5 @@ __device__ __forceinline__ void rcb15_mixed(E& X3, E& Y3, E& Z3, const E& X1,
 // The instantiation a kernel source is built for (cuda_build.py passes
 // -DDAVINCI_L).
 #ifndef DAVINCI_L
-#error "build with -DDAVINCI_L=22 or -DDAVINCI_L=32 (see cuda_build.py)"
+#error "build with -DDAVINCI_L=22, 32 or 64 (see cuda_build.py)"
 #endif

@@ -17,7 +17,9 @@
 // barrier; a warp with no add at all may leave whole.
 //
 // On G1 the curve's 3b is a small integer (9 for BN254, 3 for BLS12-377, 12
-// for BLS12-381; Consts::b3_small).  The mixed add (B2, many adds in flight)
+// for BLS12-381; Consts::b3_small) or the negative of one (-3 for BW6-761,
+// b = -1; Consts::b3_neg: the additions, then one subtraction from zero).
+// The mixed add (B2, many adds in flight)
 // multiplies by it with chains of additions on canonical values inside level
 // 1 and the operands of level 3, so it has no level 2; the complete add (B5,
 // one chain of dependent adds) keeps level 2's Montgomery products by b3,
@@ -69,6 +71,19 @@ __device__ __forceinline__ void times_small(Fp<L>& r, const Fp<L>& a,
   for (int i = 30 - __clz(k); i >= 0; i--) {
     add(r, r, r, c);
     if ((k >> i) & 1) add(r, r, x, c);
+  }
+}
+
+// r = 3b a with 3b = +-Consts::b3_small (r may alias a)
+template <int L>
+__device__ __forceinline__ void times_b3(Fp<L>& r, const Fp<L>& a,
+                                         const Consts<L>& c) {
+  times_small(r, a, c.b3_small, c);
+  if (c.b3_neg) {
+    Fp<L> zero;
+#pragma unroll
+    for (int k = 0; k < Fp<L>::N; k++) zero.w[k] = 0;
+    sub(r, zero, r, c);
   }
 }
 
@@ -191,7 +206,7 @@ __device__ __forceinline__ void add6(Pt6<L>& O, const Pt6<L>& A,
 
 // O = A + (x2, y2) (Algorithm 8: the second point affine and not the
 // identity; every thread of the group holds x2 and y2), thread r of the
-// group; O may alias A.  3b is Consts::b3_small, which must not be 0.
+// group; O may alias A.  3b is +-Consts::b3_small, which must not be 0.
 template <int L>
 __device__ __forceinline__ void madd6(Pt6<L>& O, const Pt6<L>& A,
                                       const Fp<L>& x2, const Fp<L>& y2,
@@ -212,7 +227,7 @@ __device__ __forceinline__ void madd6(Pt6<L>& O, const Pt6<L>& A,
       b = r == 0 || r == 4 ? x2 : y2;
     }
     if (r == 5) {
-      times_small(a, a, c.b3_small, c);
+      times_b3(a, a, c);
     } else {
       mul(a, a, b, c);
     }
@@ -238,7 +253,7 @@ __device__ __forceinline__ void madd6(Pt6<L>& O, const Pt6<L>& A,
         ld(u, s.p[4]);
         ld(w, A.c[0]);
         add(u, u, w, c);
-        times_small(v, u, c.b3_small, c);
+        times_b3(v, u, c);
         break;
       case 4:
         ld(u, s.p[0]);

@@ -2,7 +2,8 @@
 // thread per element, for any modulus the caller passes (p, -p^-1 mod 2^32
 // and R mod p in the Consts words, as the TPU kernel takes p_limbs and
 // np_limbs).  Built once per limb count (-DDAVINCI_L): L = 22 (BN254 Fr/Fp,
-// BLS12-377/381 Fr) and L = 32 (BLS12-377/381 Fp, BW6-761 Fr).
+// BLS12-377/381 Fr), L = 32 (BLS12-377/381 Fp, BW6-761 Fr) and L = 64
+// (BW6-761 Fp).
 //
 // Replaces the TPU kernel davinci_tpu/ff/pallas_mul.py::_mont_mul_kernel.
 // It computes what that kernel computes (the product, m = t * n' mod R,
@@ -28,7 +29,9 @@
 // L + 1 words (odd), so the threads reading their own rows out of the tile
 // hit distinct banks.  An operand with fewer rows than T (a broadcast row,
 // a short repeating table) is staged whole, once per block.  The product
-// itself is field.cuh's CIOS, unchanged.
+// itself is field.cuh's CIOS, unchanged.  At L = 64 a block holds 64 rows:
+// two tiles of 128 rows of 65 words would be 66,560 B, over the 48 KB of
+// static shared memory a block may have; 64 keeps them at 33,280 B.
 
 #include <cstring>
 
@@ -37,7 +40,7 @@
 namespace {
 
 constexpr int LIMBS = DAVINCI_L;
-constexpr int T = 128;            // elements (threads) per block
+constexpr int T = LIMBS > 32 ? 64 : 128;  // elements (threads) per block
 constexpr int STRIDE = LIMBS + 1;      // words per tile row
 
 // Stage the rows of an (rows, L) operand that elements first .. first +

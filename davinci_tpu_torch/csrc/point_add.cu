@@ -1,7 +1,12 @@
 // Complete projective point addition (RCB15 Algorithm 7, a = 0) for short
 // Weierstrass curves over a prime field (G1, B1) and its quadratic
 // extension (G2, B7).  Built once per limb count (-DDAVINCI_L): L = 22
-// (BN254) and L = 32 (BLS12-381/377), both kernels at both.
+// (BN254) and L = 32 (BLS12-381/377), both kernels at both, and L = 64
+// (BW6-761, whose G1 and G2 both lie over Fp), B1 alone: no Fp2 curve has
+// L = 64, so B7 is left out of that build.  At L = 64 an add's 24-word
+// coordinates do not fit one thread's registers: B1 spills to local
+// memory there (ptxas's report, PERF.md), a first build that is right
+// before it is fast.
 //
 // Replaces the TPU kernels davinci_tpu/ec/pallas_add.py::_point_add_kernel
 // (B1, G1) and ::_point_add2_kernel (B7, G2, Karatsuba Fp2 mul).
@@ -154,6 +159,8 @@ __global__ void __launch_bounds__(B1_THREADS)
   add_g1<true>(x1, y1, z1, x2, y2, z2, x3, y3, z3, c, n, tile);
 }
 
+#if DAVINCI_L <= 32  // B7: Fp2 only, and no Fp2 curve has L = 64
+
 // -- B7 ----------------------------------------------------------------------
 
 constexpr int ADDS = GROUPS;      // adds per warp (group6.cuh)
@@ -207,6 +214,8 @@ __global__ void __launch_bounds__(32 * WARPS)
   }
 }
 
+#endif  // DAVINCI_L <= 32
+
 Cst consts_of(const uint32_t* words) {
   Cst c;
   std::memcpy(&c, words, sizeof(c));
@@ -232,6 +241,7 @@ extern "C" int davinci_point_add_g1(const int32_t* x1, const int32_t* y1,
   return (int)cudaGetLastError();
 }
 
+#if DAVINCI_L <= 32
 extern "C" int davinci_point_add_g2(const int32_t* x1, const int32_t* y1,
                                     const int32_t* z1, const int32_t* x2,
                                     const int32_t* y2, const int32_t* z2,
@@ -245,3 +255,4 @@ extern "C" int davinci_point_add_g2(const int32_t* x1, const int32_t* y1,
       x1, y1, z1, x2, y2, z2, x3, y3, z3, consts_of(consts), n);
   return (int)cudaGetLastError();
 }
+#endif  // DAVINCI_L <= 32

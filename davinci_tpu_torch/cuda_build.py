@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each `csrc/<name>.cu` compiles with nvcc for `sm_90a` into one shared
-library with a plain C interface per limb count in `LIMBS` (the field
+library with a plain C interface per limb count in `LIMBS`, and at
+`WIDE_LIMBS` (BW6-761's 64) for the sources in `WIDE_SOURCES` (the field
 core `csrc/field.cuh` is a template on L; `-DDAVINCI_L` picks the
 instantiation), loaded through ctypes.  A library is named by its source,
 its L and a hash of the sources, built at first use into
@@ -30,6 +31,11 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 LIMBS = (22, 32)  # 12-bit limbs per field element the kernels are built for
+# BW6-761's Fp: only the sources of its path (B1, B2-B5, B6) are built at
+# 64; B7 and B5's G2 build serve Fp2, and no Fp2 curve has L = 64 (their
+# code is left out of that build), B8 is BN254 only
+WIDE_LIMBS = 64
+WIDE_SOURCES = ("point_add", "bucket", "mont_mul")
 
 _libs: dict[tuple[str, int], ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -62,10 +68,16 @@ def ptxas_log(name: str, limbs: int) -> Path:
     return BUILD_DIR / f"{name}-L{limbs}-{_digest()}.ptxas.txt"
 
 
+def limbs_of(name: str) -> tuple[int, ...]:
+    """The limb counts csrc/<name>.cu is built for."""
+    return LIMBS + ((WIDE_LIMBS,) if name in WIDE_SOURCES else ())
+
+
 def all_targets() -> list[tuple[str, int]]:
-    """(source stem, L) of every library: each csrc/*.cu at each L."""
+    """(source stem, L) of every library: each csrc/*.cu at each of its
+    limb counts."""
     return [(f.stem, limbs) for f in sorted(CSRC.glob("*.cu"))
-            for limbs in LIMBS]
+            for limbs in limbs_of(f.stem)]
 
 
 def build_all(targets=None) -> dict[str, float]:

@@ -124,7 +124,8 @@ def _int_of(limbs: torch.Tensor) -> int:
 def _consts(curve):
     """The kernels' Consts struct (csrc/field.cuh) as a ctypes array,
     cached per curve.  Raises for a curve no kernel build serves: every
-    kernel is built at L = 22 and L = 32, for moduli below 2^(32N - 1)."""
+    kernel is built at L = 22 and L = 32, B1-B6 at L = 64, for moduli
+    below 2^(32N - 1)."""
     cached = getattr(curve, "_cuda_add_consts", None)
     if cached is not None:
         return cached
@@ -135,8 +136,9 @@ def _consts(curve):
     else:
         b3 = _int_of(curve.b3)
         spec = curve.df.spec
-        consts = field_consts(B1, spec, b3=(b3, 0),
-                              b3_small=b3_small(spec.p, spec.num_limbs, b3))
+        small, neg = b3_signed_small(spec.p, spec.num_limbs, b3)
+        consts = field_consts(B1, spec, b3=(b3, 0), b3_small=small,
+                              b3_neg=neg)
     curve._cuda_add_consts = consts
     return consts
 
@@ -149,6 +151,16 @@ def b3_small(p, L, b3_mont):
     is below B3_SMALL_MAX, else 0: the kernels' field.cuh Consts word."""
     v = b3_mont * pow(1 << (12 * L), -1, p) % p
     return v if v < B3_SMALL_MAX else 0
+
+
+def b3_signed_small(p, L, b3_mont):
+    """(k, neg): 3b = k, or 3b = -k where neg (BW6-761 G1, b = -1: k = 3),
+    for 0 < k < B3_SMALL_MAX; (0, False) where 3b is neither."""
+    k = b3_small(p, L, b3_mont)
+    if k:
+        return k, False
+    k = b3_small(p, L, (p - b3_mont) % p)
+    return (k, True) if k else (0, False)
 
 
 def _launch(kernel, curve, p, q, ints):

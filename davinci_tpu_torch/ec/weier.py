@@ -132,9 +132,12 @@ class DeviceCurve:
     def scalar_mul(self, p, scalar_limbs, nbits: int | None = None):
         """Batched double-and-add: scalar_limbs is the *raw* base-2^12 limb
         tensor of the scalars, shape (..., Ls).  Each step runs the add
-        and the doubling as one batched point add."""
+        and the doubling as one batched point add.  The walk stops at the
+        largest scalar's top bit: the steps above it leave every sum as it
+        is."""
         if nbits is None:
             nbits = self.spec.r.bit_length()
+        nbits = min(nbits, _top_bit(scalar_limbs))
         acc = self.identity(self.batch_shape(p))
         base = p
         for j in range(nbits):
@@ -172,6 +175,17 @@ class DeviceCurve:
             torch.where(infc, self.ops.one_mont, y),
             torch.where(infc, zero, one),
         )
+
+
+def _top_bit(scalar_limbs) -> int:
+    """The bit length of the largest scalar of a raw base-2^12 limb batch
+    (..., Ls)."""
+    limbs = scalar_limbs.reshape(-1, scalar_limbs.shape[-1])
+    used = (limbs != 0).any(0).nonzero()
+    if len(used) == 0:
+        return 0
+    j = int(used[-1])
+    return LIMB_BITS * j + int(limbs[:, j].max()).bit_length()
 
 
 @functools.cache

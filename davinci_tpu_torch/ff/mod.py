@@ -25,10 +25,14 @@ operand by 2^12 and then reduces by 2^(24 n): REDC'(2^12 a b) = a b / R.
 A limb convolution is one broadcast multiply and one float64 matmul that
 sums the anti-diagonals (PyTorch has no integer matmul on CUDA; float64
 is exact at these sizes), or a single matmul with a Toeplitz matrix when
-one operand is a constant.  Carries resolve without data-dependent
-control flow: shift passes bound every column to one limb plus a carry
-bit, then a carry-lookahead over per-element bitmasks (generate/propagate,
-resolved by one integer addition) finishes exactly.
+one operand is a constant.  Beyond 16 wide limbs (BW6-761's Fp, L = 64)
+a float64 column of 24-bit products could pass 2^53, so the columns are
+summed in int64 instead (`conv_cols_int`, exact there); the rest of the
+arithmetic, and R = 2^(24 n), is the same.  Carries resolve without
+data-dependent control flow: shift passes bound every column to one limb
+plus a carry bit, then a carry-lookahead over per-element bitmasks
+(generate/propagate, resolved by one integer addition, in blocks of 61
+positions) finishes exactly.
 """
 
 from __future__ import annotations
@@ -90,6 +94,35 @@ def conv_const(a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.float64) @ t).to(torch.int64)
 
 
+# float64 columns of 24-bit products are exact up to this many wide limbs
+FLOAT_MAX_LIMBS = 16
+
+
+def conv_cols_int(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`conv_cols` summed in int64, for more than FLOAT_MAX_LIMBS wide
+    limbs (BW6-761's Fp: 32), where a float64 column could pass 2^53.
+    Exact while n products below 2^50 stay under 2^63.  b may be a
+    constant (n,).  A small batch takes the outer product with row i
+    shifted right by i (one pad, then a view with rows of 2n - 1) summed
+    over the rows, a few operations; a large one one multiply-add of b,
+    shifted by i, per limb i of a, which moves n times fewer bytes."""
+    n = a.shape[-1]
+    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+    if shape.numel() <= _INT_COLS_SMALL:
+        outer = a.unsqueeze(-1) * b.unsqueeze(-2)
+        skew = Fn.pad(outer, (0, n)).flatten(-2)[..., : n * (2 * n - 1)]
+        return Fn.pad(skew.unflatten(-1, (n, 2 * n - 1)).sum(-2), (0, 1))
+    out = torch.zeros(shape + (2 * n,), dtype=torch.int64, device=a.device)
+    b = b.expand(shape + (n,))
+    for i in range(n):
+        out[..., i : i + n].add_(b * a[..., i : i + 1])
+    return out
+
+
+# the batch up to which `conv_cols_int` takes the outer product
+_INT_COLS_SMALL = 256
+
+
 def _shift_pass(x: torch.Tensor, bits: int) -> torch.Tensor:
     lo = x & ((1 << bits) - 1)
     lo[..., 1:] += x[..., :-1] >> bits  # arithmetic shift: borrow-safe
@@ -109,13 +142,23 @@ def _resolve(x: torch.Tensor, bits: int) -> torch.Tensor:
     mask = (1 << bits) - 1
     k = x.shape[-1]
     if k > _LOOKAHEAD_MAX:
-        out = []
-        carry = torch.zeros_like(x[..., 0])
-        for i in range(k):
-            v = x[..., i] + carry
-            out.append(v & mask)
-            carry = v >> bits
-        return torch.stack(out, dim=-1)
+        # blocks of at most _LOOKAHEAD_MAX positions, each block's carry
+        # out (bit `width` of its sum) the next one's carry in
+        out, carry = [], None
+        for lo in range(0, k, _LOOKAHEAD_MAX):
+            block = x[..., lo:lo + _LOOKAHEAD_MAX]
+            if carry is not None:
+                block = block.clone()
+                block[..., 0] += carry
+            width = block.shape[-1]
+            iota = _iota(width, x.device)
+            gen = ((block >> bits) << iota).sum(-1)
+            prop = ((block == mask).to(torch.int64) << iota).sum(-1)
+            s = (gen << 1) + prop
+            carry = (s >> width) & 1
+            cin = s ^ prop
+            out.append((block + ((cin.unsqueeze(-1) >> iota) & 1)) & mask)
+        return torch.cat(out, -1)
     iota = _iota(k, x.device)
     gen = ((x >> bits) << iota).sum(-1)
     prop = ((x == mask).to(torch.int64) << iota).sum(-1)
@@ -190,28 +233,29 @@ class DeviceField:
     Public methods take and return (..., L) int32 Montgomery limbs.  The
     `*_w` methods are the same operations on (..., ceil(L/2)) int64 wide
     limbs; compositions (point adds, NTT stages) stay wide between
-    operations.  An odd L is served on the CPU only.
+    operations.  An odd L is served on the CPU only; above 16 wide limbs
+    the product columns are summed in int64 (`conv_cols_int`).
     """
 
     coord_ndim = 1
+    MAX_LIMBS = 64  # BW6-761's Fp; B6 is built for L = 22, 32 and 64
     # elements per chunk of a plain mul: the float64 outer product is
     # (L/2)^2 * 8 bytes per element (~1 KB at L=22); B6 needs no cap
     _MUL_CHUNK = 1 << 19
 
     def __init__(self, spec: FieldSpec, device="cuda"):
         device = torch.device(device)
-        if spec.num_limbs > 32 or (spec.num_limbs % 2
-                                   and device.type != "cpu"):
-            # float64 limb products are exact up to 16 wide limbs; B6 is
-            # built for L = 22 and 32 only
+        if spec.num_limbs > self.MAX_LIMBS or (spec.num_limbs % 2
+                                               and device.type != "cpu"):
             raise ValueError(
                 f"{spec.name}: {spec.num_limbs} limbs on {device.type} (need"
-                f" a count <= 32, even off the CPU)")
+                f" a count <= {self.MAX_LIMBS}, even off the CPU)")
         self.spec = spec
         self.device = device
         self.L = spec.num_limbs
         self.n = (self.L + 1) // 2
         self._odd = self.L % 2 == 1
+        self._int_cols = self.n > FLOAT_MAX_LIMBS
         self.p_limbs = self._t(spec.to_limbs_unreduced(spec.p))
         self.nprime_limbs = self._t(spec.to_limbs_unreduced(spec.n_prime))
         self.zero = torch.zeros(self.L, dtype=torch.int32, device=self.device)
@@ -233,8 +277,13 @@ class DeviceField:
         self._csub_c = bias - torch.cat([self._p_w, bias[:1] * 0])
         self._sub_c = bias[: self.n] + self._p_w
         self._prod_bits = 2 * WIDE_BITS + self.n.bit_length() + 1
-        self._np_t = toeplitz(self._np_w)[:, : self.n]  # low half: mod R
-        self._p_t = toeplitz(self._p_w)
+        if self._int_cols:  # the constants as wide limbs
+            self._conv = self._conv_c = conv_cols_int
+            self._np_t, self._p_t = self._np_w, self._p_w
+        else:
+            self._conv, self._conv_c = conv_cols, conv_const
+            self._np_t = toeplitz(self._np_w)[:, : self.n]  # low half: mod R
+            self._p_t = toeplitz(self._p_w)
 
     def _t(self, arr) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr, np.int32), device=self.device)
@@ -295,9 +344,9 @@ class DeviceField:
         m = t * n' mod R is canonical, so (t + m p)/R < 2p.  R here is
         2^(24 n), the field's R at even L."""
         n = self.n
-        m = normalize(conv_const(t[..., :n], self._np_t), WIDE_BITS,
-                      self._prod_bits)
-        s = conv_const(m, self._p_t)
+        m = normalize(self._conv_c(t[..., :n], self._np_t)[..., :n],
+                      WIDE_BITS, self._prod_bits)
+        s = self._conv_c(m, self._p_t)
         s[..., : t.shape[-1]] += t
         # t + m*p == 0 mod R and (t + m*p)/R < 2p: the low half vanishes
         s = normalize(s, WIDE_BITS, self._prod_bits + 1)
@@ -308,7 +357,7 @@ class DeviceField:
             hi = a >> LIMB_BITS
             a = (a & LIMB_MASK) << LIMB_BITS
             a[..., 1:] |= hi[..., :-1]
-        t = bound_limbs(conv_cols(a, b), WIDE_BITS, self._prod_bits)
+        t = bound_limbs(self._conv(a, b), WIDE_BITS, self._prod_bits)
         return self._redc_w(t)
 
     def mul_w(self, a, b):

@@ -17,7 +17,6 @@ more G1 MSMs over the key's commitment bases.
 
 from __future__ import annotations
 
-import functools
 import random as _random
 from dataclasses import dataclass
 
@@ -274,25 +273,29 @@ class Groth16:
         # nothing to the A/B MSMs
         a_indices = [i for i in range(m) if u[i]]
         b_indices = [i for i in range(m) if v[i]]
-        g1e = functools.partial(self._batch_mul_enc, self.dc, self.g1)
-        g2e = functools.partial(self._batch_mul_enc, self.dc2, self.g2)
         v_nz = [v[i] for i in b_indices]
+        # every G1 set in one batch: one double-and-add on the CPU, full
+        # chunks of the fixed-base table on the card
+        a_g1, b_g1, k_g1, z_g1, kc_g1, kce_g1, kp_g1 = self._batch_mul_sets(
+            self.dc, self.g1,
+            [[u[i] for i in a_indices], v_nz, k_priv, z_scalars, k_commit,
+             [x * eta % r for x in k_commit], k_pub])
         pk = ProvingKey(
             alpha_g1=self.g1.gen.mul(alpha),
             beta_g1=self.g1.gen.mul(beta),
             beta_g2=self.g2.gen.mul(beta),
             delta_g1=self.g1.gen.mul(delta),
             delta_g2=self.g2.gen.mul(delta),
-            a_g1=g1e([u[i] for i in a_indices]),
-            b_g1=g1e(v_nz),
-            b_g2=g2e(v_nz),
-            k_g1=g1e(k_priv),
-            z_g1=g1e(z_scalars),
+            a_g1=a_g1,
+            b_g1=b_g1,
+            b_g2=self._batch_mul_enc(self.dc2, self.g2, v_nz),
+            k_g1=k_g1,
+            z_g1=z_g1,
             domain_log=logN,
             a_indices=np.asarray(a_indices, np.int64),
             b_indices=np.asarray(b_indices, np.int64),
-            k_commit_g1=g1e(k_commit),
-            k_commit_eta_g1=g1e([x * eta % r for x in k_commit]),
+            k_commit_g1=kc_g1,
+            k_commit_eta_g1=kce_g1,
             k_priv_indices=k_priv_indices,
         )
         vk = VerifyingKey(
@@ -300,7 +303,7 @@ class Groth16:
             beta_g2=pk.beta_g2,
             gamma_g2=self.g2.gen.mul(gamma),
             delta_g2=pk.delta_g2,
-            k_pub_g1=g1e(k_pub).to_host_points(self.dc),
+            k_pub_g1=kp_g1.to_host_points(self.dc),
             k_challenge_g1=(
                 self.g1.gen.mul(k_chal) if k_chal is not None else None
             ),
@@ -311,6 +314,18 @@ class Groth16:
     # bounds on the device working set of one batch-mul chunk
     _BATCH_MUL_CHUNK = 65536
     _BATCH_MUL_CHUNK_G2 = 16384
+
+    def _batch_mul_sets(self, dc, gspec, sets) -> list:
+        """`_batch_mul_enc` of several scalar lists in one call, split back
+        into one EncodedBases per list."""
+        enc = self._batch_mul_enc(dc, gspec, [s for part in sets for s in part])
+        out, ofs = [], 0
+        for part in sets:
+            out.append(EncodedBases(enc.x[ofs : ofs + len(part)],
+                                    enc.y[ofs : ofs + len(part)],
+                                    enc.z[ofs : ofs + len(part)]))
+            ofs += len(part)
+        return out
 
     def _batch_mul_enc(self, dc, gspec, scalars) -> EncodedBases:
         """[s * gen] for a scalar list as EncodedBases: on an accelerator,

@@ -11,9 +11,10 @@ with the signature
 that launches on the given stream and returns `cudaGetLastError()`.
 `Kernel.launch` calls it on PyTorch's current stream, raises on a nonzero
 code and only then adds one to `launches`.  Each library is built per
-limb count L (`cuda_build.LIMBS`); a kernel has one record per L it is
+limb count L (`cuda_build.limbs_of`); a kernel has one record per L it is
 built for, so the counts show which instantiation ran: `B1` is the
-L = 22 build of the G1 add, `B1.at(32)` (`B1_L32`) the L = 32 one.
+L = 22 build of the G1 add, `B1.at(32)` (`B1_L32`) the L = 32 one and
+`B1.at(64)` (`B1_L64`) BW6-761's.
 """
 
 from __future__ import annotations
@@ -116,11 +117,12 @@ def check_tensors(kernel, tensors):
 
 
 def field_consts(kernel, spec, b3=(0, 0), nr=0, nr_is_m1=False,
-                 b3_small=0):
+                 b3_small=0, b3_neg=False):
     """The Consts struct of csrc/field.cuh for field `spec` as a ctypes
     uint32 array (b3 and nr: Montgomery-form ints of the curve; b3_small:
-    G1's 3b as an integer where it is small, else 0; the six-thread mixed
-    add of csrc/group6.cuh multiplies by it with additions).  Raises
+    G1's |3b| as an integer where it is small, else 0, and b3_neg where 3b
+    is its negative; the six-thread mixed add of csrc/group6.cuh
+    multiplies by it with additions).  Raises
     where no build of `kernel` serves the field: L without a build, or a
     modulus of 32N - 1 bits or more (2p must fit N words)."""
     L = spec.num_limbs
@@ -137,7 +139,7 @@ def field_consts(kernel, spec, b3=(0, 0), nr=0, nr_is_m1=False,
 
     np0 = (-pow(p, -1, 1 << 32)) % (1 << 32)
     vals = (w(p) + w(b3[0]) + w(b3[1]) + w(nr) + [np0, int(nr_is_m1)]
-            + w(spec.r_mod_p) + [b3_small])
+            + w(spec.r_mod_p) + [b3_small, int(b3_neg)])
     return (ctypes.c_uint32 * len(vals))(*vals)
 
 
@@ -168,6 +170,10 @@ B5G2 = Kernel("horner_g2", "davinci_horner_g2", _BUCKET,
 # the L = 32 builds (BLS12-381/377 G1, G2 and base fields)
 B1_L32, B2_L32, B3_L32, B4_L32, B5_L32, B6_L32, B7_L32, B5G2_L32 = (
     k.build_for(32) for k in (B1, B2, B3, B4, B5, B6, B7, B5G2))
+# the L = 64 builds (BW6-761: G1 and G2 both over Fp, both on the scan
+# path); B7 and B5's G2 build serve Fp2 only, and no Fp2 curve has L = 64
+B1_L64, B2_L64, B3_L64, B4_L64, B5_L64, B6_L64 = (
+    k.build_for(64) for k in (B1, B2, B3, B4, B5, B6))
 # B8: the point-add experiment's four G1 add designs, BN254 at L = 22 only
 # (ec/addk_exp.py); the field's constants are compiled in (consts NULL)
 B8 = {v: Kernel(f"addk_{v}", f"davinci_addk_{v}", _ADDK,
@@ -175,4 +181,5 @@ B8 = {v: Kernel(f"addk_{v}", f"davinci_addk_{v}", _ADDK,
       for v in ("v2d", "lazy", "kara", "addonly")}
 KERNELS = (B1, B2, B3, B4, B5, B6, B7, B5G2,
            B1_L32, B2_L32, B3_L32, B4_L32, B5_L32, B6_L32, B7_L32, B5G2_L32,
-           *B8.values())
+           *B8.values(),
+           B1_L64, B2_L64, B3_L64, B4_L64, B5_L64, B6_L64)

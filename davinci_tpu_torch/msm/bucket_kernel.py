@@ -56,7 +56,7 @@ def _require(kernel, cond, what):
 def _cuda_curve(kernel, curve, tensors, coord_ndim=1):
     """Checks before a launch: a curve of the kernel's group (G1, or G2
     for coord_ndim 2) with a build of the kernel for its limb count
-    (L = 22 or 32; the Consts array raises otherwise) and contiguous
+    (L = 22, 32 or 64; the Consts array raises otherwise) and contiguous
     operands.  Returns that build and the Consts array."""
     _require(kernel, curve.ops.coord_ndim == coord_ndim,
              "built for G2 (Fp2) only" if coord_ndim == 2
@@ -114,8 +114,10 @@ def _bucket_scan(curve, pts_arr, keys_arr, signed=False):
     """pts_arr: (rows, LP, NL) sorted column-major packed affine points;
     keys_arr: (rows, NL) sorted keys (signed: 2 * bucket + sign).
     Returns the projective running accumulator stream (rows, NL, 3L).
-    The kernel multiplies by 3b with additions: a curve whose 3b is not
-    small (`cuda_add.b3_small` 0) is refused."""
+    The kernel multiplies by 3b with additions (and a negation where 3b
+    is negative, BW6-761 G1's -3): a curve whose 3b is neither small nor
+    the negative of a small integer (`cuda_add.b3_signed_small`) is
+    refused."""
     device = check_tensors(B2, (pts_arr, keys_arr))
     rows, LP, nl = pts_arr.shape
     L = curve.df.L
@@ -125,8 +127,9 @@ def _bucket_scan(curve, pts_arr, keys_arr, signed=False):
     if device.type == "cpu":
         return _bucket_scan_plain(curve, pts_arr, keys_arr, signed)
     kernel, consts = _cuda_curve(B2, curve, (pts_arr, keys_arr))
-    _require(B2, consts[len(consts) - 1] != 0,
-             f"3b of {curve.df.spec.name}'s curve is not a small integer")
+    _require(B2, consts[len(consts) - 2] != 0,
+             f"3b of {curve.df.spec.name}'s curve is not a small integer"
+             f" or the negative of one")
     out = torch.empty((rows, nl, 3 * L), dtype=torch.int32, device=device)
     if out.numel():
         kernel.launch(device, (pts_arr, keys_arr, out), consts,

@@ -8,7 +8,9 @@ block-tile edges, on broadcast, repeating and raw operands) are held
 limb for limb against their plain PyTorch versions on the same CUDA
 tensors, each launch counted once, at L = 22 and, for B1, B2, B4, B5,
 B6 and B7, at L = 32 (BLS12-381, and BLS12-377's G2, whose Fp2 has
-u^2 = -5); B4 against the plain version of its split order; B2 and B5
+u^2 = -5), and for B1-B6 at L = 64 (BW6-761: G1, whose 3b = -3 B2 takes
+as a negated small integer, and G2, both over Fp; B6's blocks of 64
+rows there); B4 against the plain version of its split order; B2 and B5
 on edge inputs in both forms of their products by b3.  The MSMs that run on them (the scan path for G1, the fused
 pipeline for G2) are held against a host sum.  B8, the point-add experiment's four designs of the BN254 G1 add
 (ec/addk_exp.py), is held against its plain versions and, for the three
@@ -58,7 +60,8 @@ def _operands(dc, spec, n, seed):
 
 
 @pytest.mark.parametrize(
-    "name", ["bn254_g1", "bn254_g2", "bls381_g1", "bls377_g2", "bls381_g2"])
+    "name", ["bn254_g1", "bn254_g2", "bls381_g1", "bls377_g2", "bls381_g2",
+             "bw6_g1", "bw6_g2"])
 def test_kernel_matches_plain(dev, name):
     spec = getattr(C, name)
     dc = get_device_curve(spec, dev)
@@ -124,7 +127,8 @@ def _planes(t):
 
 
 @pytest.mark.parametrize("n", [1, 22, 45063])
-@pytest.mark.parametrize("name", ["bn254_g1", "bls381_g1"])
+@pytest.mark.parametrize("name", ["bn254_g1", "bls381_g1", "bw6_g1",
+                                  "bw6_g2"])
 def test_b1_planes_and_rows_match_plain(dev, name, n):
     """B1 on (L, n) planes and through the row wrapper: n sums of random
     points (ending inside a block at 1, 22 and 45,063), then the edge and
@@ -165,7 +169,8 @@ def test_b1_planes_take_the_scan_layout(dev):
 
 
 @pytest.mark.parametrize("name",
-                         ["bn254_g1", "bn254_g2", "bls381_g1", "bls377_g2"])
+                         ["bn254_g1", "bn254_g2", "bls381_g1", "bls377_g2",
+                          "bw6_g1", "bw6_g2"])
 def test_msm_on_the_card_matches_host(dev, name):
     spec = getattr(C, name)
     dc = get_device_curve(spec, dev)
@@ -213,7 +218,8 @@ def _projective(dc, n, seed):
 
 
 @pytest.mark.parametrize("signed", [False, True])
-@pytest.mark.parametrize("name", ["bn254_g1", "bls381_g1"])
+@pytest.mark.parametrize("name", ["bn254_g1", "bls381_g1", "bw6_g1",
+                                  "bw6_g2"])
 def test_bucket_scan_matches_plain(dev, signed, name):
     spec = getattr(C, name)
     dc = get_device_curve(spec, dev)
@@ -235,6 +241,7 @@ def test_bucket_scan_matches_plain(dev, signed, name):
     ("bls381_g1", 22, 2048),  # the blob's, at L = 32
     ("bn254_g1", 3, 64),      # NB < 256: C = NB, K = 1
     ("bls381_g1", 5, 4),      # 20 lanes: a partial block across windows
+    ("bw6_g1", 5, 2048),      # L = 64
 ])
 def test_bucket_reduce_matches_plain(dev, name, Wt, NB):
     """B3 on the first NB slots of (L, Wt, NB + 2) buckets, as the MSM
@@ -259,7 +266,7 @@ def test_bucket_reduce_matches_plain(dev, name, Wt, NB):
 
 
 @pytest.mark.parametrize("Kr", [1, 4, 5, 7, 32, 256])
-@pytest.mark.parametrize("name", ["bn254_g1", "bls381_g1"])
+@pytest.mark.parametrize("name", ["bn254_g1", "bls381_g1", "bw6_g1"])
 def test_suffix_reduce_matches_plain(dev, name, Kr):
     """B4 adds in chunks (`suffix_chunk`): limb-equal to the split plain
     version, and the same points as the reference's walk."""
@@ -294,7 +301,7 @@ def test_horner_matches_plain(dev):
 
 
 @pytest.mark.parametrize("nl", [1, 7, 23, 301])
-@pytest.mark.parametrize("name", ["bn254_g1", "bls381_g1"])
+@pytest.mark.parametrize("name", ["bn254_g1", "bls381_g1", "bw6_g1"])
 def test_bucket_scan_edges(dev, name, nl):
     """B2 with lane counts that end inside a warp's five groups and a
     block's twenty, runs of one point added to itself (the doubling case
@@ -321,7 +328,7 @@ def test_bucket_scan_edges(dev, name, nl):
 
 
 @pytest.mark.parametrize("B", [1, 3, 7, 131])
-@pytest.mark.parametrize("name", ["bn254_g1", "bls381_g1"])
+@pytest.mark.parametrize("name", ["bn254_g1", "bls381_g1", "bw6_g1"])
 def test_horner_edges(dev, name, B):
     """B5 with identity windows (the top one of column 0, a lower one of
     every column) and column counts that end inside a warp's groups."""
@@ -427,7 +434,7 @@ def test_scan_msm_launches_every_kernel(dev):
 # -- B6, the Montgomery product ------------------------------------------------
 
 B6_FIELDS = ["bn254_fr", "bn254_fp", "bls12_377_fr", "bls12_381_fr",
-             "bls12_377_fp", "bls12_381_fp"]
+             "bls12_377_fp", "bls12_381_fp", "bw6_761_fp"]
 
 
 @pytest.mark.parametrize("name", B6_FIELDS)
@@ -453,10 +460,11 @@ def test_mont_mul_matches_plain(dev, name):
     assert df.decode(df.to_mont(c)) == [v % p for v in raw]
 
 
-@pytest.mark.parametrize("n", [1, 127, 128, 129, (1 << 16) + 5])
-@pytest.mark.parametrize("name", ["bn254_fr", "bls12_381_fp"])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, (1 << 16) + 5])
+@pytest.mark.parametrize("name", ["bn254_fr", "bls12_381_fp", "bw6_761_fp"])
 def test_mont_mul_tiles(dev, name, n):
-    """B6's block tiles of 128 rows: counts that end inside a block, a
+    """B6's block tiles of 128 rows (64 at L = 64): counts that end inside
+    a block, a
     broadcast row on either side (as (1, L) and as (L,)), repeating rows,
     a raw operand on either side and a view at an odd row offset."""
     spec = getattr(F, name)

@@ -24,9 +24,10 @@ from davinci_tpu_torch.ff.quad import get_device_quad
 torch.set_num_threads(1)
 
 BN254 = ["bn254_fr", "bn254_fp"]
-# every registered field with at most 32 limbs (bw6_761_fp has 64)
+# every registered field (bw6_761_fp's 64 limbs take the int64 columns)
 EVEN = ["bn254_fr", "bn254_fp", "bls12_377_fr", "bls12_377_fp",
-        "bls12_381_fr", "bls12_381_fp", "secp256k1_fp", "secp256k1_fn"]
+        "bls12_381_fr", "bls12_381_fp", "secp256k1_fp", "secp256k1_fn",
+        "bw6_761_fp"]
 
 
 def _elems(p, n, seed):
@@ -105,8 +106,11 @@ def test_carry_fix_matches_reference():
 
 
 def test_wide_limb_field_rejects_more_than_32_limbs():
+    """Up to 64 limbs since BW6-761's Fp is served (test_torch_l64_field.py);
+    a count above 64 is still refused."""
+    assert get_device_field(TF.bw6_761_fp, "cpu").L == 64
     with pytest.raises(ValueError):
-        get_device_field(TF.bw6_761_fp, "cpu")
+        get_device_field(TF.FieldSpec("wide", TF.BW6_761_P, 66), "cpu")
 
 
 def test_quad_ext_matches_reference():

@@ -30,7 +30,7 @@ VERBATIM = [
     "circuits/algebra.py", "circuits/keccak_gadget.py",
     "circuits/xfield_hash.py", "circuits/ecdsa_gadget.py",
     "circuits/pairing_gadget.py", "circuits/voteverifier.py",
-    "circuits/toycurve.py",
+    "circuits/toycurve.py", "circuits/aggregator.py",
 ]
 
 

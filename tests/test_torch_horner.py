@@ -105,11 +105,13 @@ def test_g2_horner_wrapper_refuses():
 @pytest.mark.parametrize("name, want", [
     ("bn254_g1", 9), ("bls377_g1", 3), ("bls381_g1", 12)])
 def test_b3_small_is_three_b(name, want):
-    """The Consts word that lets the six-thread G1 mixed add multiply by
-    3b with additions: 3b itself, the last word of the array."""
+    """The Consts words that let the six-thread G1 mixed add multiply by
+    3b with additions: 3b itself, the second-to-last word of the array,
+    and its sign, the last (0 here: BW6-761's G1 sets it, 3b = -3,
+    test_torch_bw6.py)."""
     T = get_device_curve(getattr(TC, name), "cpu")
     consts = cuda_add._consts(T)
-    assert consts[len(consts) - 1] == want
+    assert (consts[len(consts) - 2], consts[len(consts) - 1]) == (want, 0)
     p, L = T.df.spec.p, T.df.L
     assert cuda_add.b3_small(p, L, want * (1 << (12 * L)) % p) == want
     big = cuda_add.B3_SMALL_MAX * (1 << (12 * L)) % p

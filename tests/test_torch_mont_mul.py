@@ -25,9 +25,10 @@ from davinci_tpu_torch.ff import cuda_mul, get_device_field
 
 torch.set_num_threads(1)
 
-# every field B6 is built for: L = 22 (p below 2^255) and L = 32
+# every field B6 is built for: L = 22 (p below 2^255), L = 32 and L = 64
+# (BW6-761's Fp; test_torch_l64_field.py draws over all of its range)
 SUPPORTED = ["bn254_fr", "bn254_fp", "bls12_377_fr", "bls12_381_fr",
-             "bls12_377_fp", "bls12_381_fp"]
+             "bls12_377_fp", "bls12_381_fp", "bw6_761_fp"]
 N = 61  # random draws per operand
 
 
@@ -99,12 +100,17 @@ def test_unsupported_field_raises_on_the_card_path(name, monkeypatch):
 
 
 def test_no_build_for_other_limb_counts():
-    with pytest.raises(ValueError, match="L = 64"):
-        K.field_consts(K.B6, TF.bw6_761_fp)
+    # B6 is built at L = 22, 32 and 64 (BW6-761's Fp), not at 40
+    assert K.B6.at(64) is K.B6_L64
+    K.field_consts(K.B6, TF.bw6_761_fp)
+    with pytest.raises(ValueError, match="L = 40"):
+        K.field_consts(K.B6, TF.FieldSpec("l40", TF.BLS12_381_P, 40))
     # B7 is built at L = 22 and 32, B8 at L = 22 only
     assert K.B7.at(32) is K.B7_L32
     with pytest.raises(ValueError, match="L = 22 and 32 only, not L = 64"):
         K.B7.at(64)
+    with pytest.raises(ValueError, match="L = 22 only, not L = 64"):
+        K.B8["v2d"].at(64)
     with pytest.raises(ValueError, match="L = 22 only"):
         K.B8["v2d"].at(32)
 

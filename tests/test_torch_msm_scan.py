@@ -495,8 +495,11 @@ def test_kernel_registry_lists_the_slice():
         "point_add_g1_l32", "bucket_scan_g1_l32", "bucket_reduce_g1_l32",
         "suffix_reduce_g1_l32", "horner_g1_l32", "mont_mul_l32",
         "point_add_g2_l32", "horner_g2_l32",
-        "addk_v2d", "addk_lazy", "addk_kara", "addk_addonly"]
-    assert [k.limbs for k in KERNELS] == [22] * 8 + [32] * 8 + [22] * 4
+        "addk_v2d", "addk_lazy", "addk_kara", "addk_addonly",
+        "point_add_g1_l64", "bucket_scan_g1_l64", "bucket_reduce_g1_l64",
+        "suffix_reduce_g1_l64", "horner_g1_l64", "mont_mul_l64"]
+    assert [k.limbs for k in KERNELS] == ([22] * 8 + [32] * 8 + [22] * 4
+                                          + [64] * 6)
 
 
 # -- the reference's interpret-mode kernels ---------------------------------------

@@ -105,9 +105,11 @@ def test_other_odd_limb_counts_against_ints(p, L):
 
 def test_odd_limb_count_is_refused_off_the_cpu():
     """No kernel is built for an odd L, so a field on the card raises at
-    construction; an even L above 32 raises anywhere."""
+    construction; an L above 64 (BW6-761's Fp, the largest served) raises
+    anywhere."""
     with pytest.raises(ValueError):
         DeviceField(toy_bls12()["fr_spec"], "cuda")
+    assert DeviceField(TF.bw6_761_fp, "cpu").L == 64
     with pytest.raises(ValueError):
-        DeviceField(TF.bw6_761_fp, "cpu")
+        DeviceField(TF.FieldSpec("wide", TF.BW6_761_P, 66), "cpu")
 
