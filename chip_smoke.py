@@ -179,10 +179,6 @@ steady reuse proves, and a second store on the same directory that must
 load with no setup, then prove and verify, each with 10d's record (the
 replay against the plain versions is 10d's alone).
 
-    python3 chip_smoke.py --l64
-
-builds the L = 64 libraries and runs [11a] alone.
-
     python3 chip_smoke.py --c3
 
 runs phases 5 and 10 (phase 10's prove without the replay), then the
@@ -191,10 +187,12 @@ dummy vote (`sequencer/provers.py:162-190`: a c2 proof, under c2's key,
 of the fixed dummy witness; the production c2 verifies an inner proof,
 so the dummy carries phase 5's c1 proof and inputs hash) [11e], c3 with
 phase 10's proof as the one real vote and the dummy in the other 59
-slots [11b], setup through the store [11c], `prove_and_verify` [11d]
-and two more proves [11f], each verified and refused with the batch
-hash + 1, and a second store on the same directory that must load with
-no setup, then prove and verify [11g] (no kernel replay).
+slots [11b], setup on the card in memory [11c], `prove_and_verify`
+[11d] and one more prove [11f], each verified and refused with the batch
+hash + 1, then that key written through the store (the host's resident
+set sampled around the write) and a second store on the same directory
+that must load it with no setup, then prove and verify [11g] (no kernel
+replay).
 
     python3 chip_smoke.py --c2-size
 
@@ -1760,10 +1758,78 @@ def c3_build(c2_vk, vote, dummy, n_votes, tag):
     return params, cs, out
 
 
-def c3_setup(params, cs, root, stages, tag):
+class KeyedGroth16:
+    """A Groth16 backend whose `setup` hands back a key already made
+    (`pk`, `vk`), everything else its backend's: the store's `g16`
+    parameter with it persists that key through the store's own write."""
+
+    def __init__(self, g16, pk, vk):
+        self._g16, self._key = g16, (pk, vk)
+
+    def setup(self, cs, rng=None):
+        return self._key
+
+    def __getattr__(self, name):
+        return getattr(self._g16, name)
+
+
+class HostPeak:
+    """The largest resident set of this process, in GiB, over a `with`
+    block: /proc/self/status's VmRSS sampled every 0.2 s."""
+
+    @staticmethod
+    def rss_gib():
+        for line in Path("/proc/self/status").read_text().splitlines():
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+        raise RuntimeError("no VmRSS in /proc/self/status")
+
+    def __enter__(self):
+        import threading
+
+        self.start_gib = self.peak_gib = self.rss_gib()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.2):
+            self.peak_gib = max(self.peak_gib, self.rss_gib())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak_gib = max(self.peak_gib, self.rss_gib())
+
+
+def key_bytes(pk):
+    """(host, card) bytes of a proving key's base sets: the numpy
+    coordinates and the tensors uploaded and packed from them."""
+    import torch
+
+    from davinci_tpu_torch.groth16.bases import EncodedBases
+
+    host = card = 0
+    for b in vars(pk).values():
+        if isinstance(b, EncodedBases):
+            host += b.x.nbytes + b.y.nbytes + b.z.nbytes
+            for v in (*b._dev.values(), *b._packed.values()):
+                for t in v if isinstance(v, (tuple, list)) else (v,):
+                    if isinstance(t, torch.Tensor):
+                        card += t.nbytes
+    return host, card
+
+
+def c3_setup(params, cs, root, stages, tag, key=None):
     """[11c] c3 set up on the card through the store under `root`: sizes
     of pk.bin and vk.bin, the domain, the setup's launches (B1 and B6 at
-    L = 64 must be launched).  Returns (the runtime, results)."""
+    L = 64 must be launched) and the host's resident set before and at
+    its peak.  With `key`, (Groth16 backend, pk, vk) of a setup already
+    made, the store writes that key (`KeyedGroth16`) and launches nothing.
+    Returns (the runtime, results)."""
+    import gc
+
     import torch
 
     from davinci_tpu_torch import kernels as K
@@ -1773,8 +1839,12 @@ def c3_setup(params, cs, root, stages, tag):
     for k in K.KERNELS:
         k.launches = 0
     stages.took.clear()
+    gc.collect()
     t0 = time.perf_counter()
-    rt = ArtifactStore(root).load_or_setup(cid, "bw6_761", cs)
+    with HostPeak() as host:
+        say(f"{tag} host resident {host.start_gib:.2f} GiB before the store")
+        rt = ArtifactStore(root).load_or_setup(
+            cid, "bw6_761", cs, g16=key and KeyedGroth16(*key))
     torch.cuda.synchronize()
     out = {"setup_s": time.perf_counter() - t0,
            "artifacts_setup_s": stages.took.get("artifacts.setup"),
@@ -1783,17 +1853,60 @@ def c3_setup(params, cs, root, stages, tag):
            "domain_log": rt.pk.domain_log,
            "structure_hash": rt.structure_hash,
            "setup_launches": {k.name: k.launches for k in K.KERNELS
-                              if k.launches}}
+                              if k.launches},
+           "host_rss_gib": host.start_gib, "host_peak_gib": host.peak_gib}
     check(out["artifacts_setup_s"] is not None, "c3's store ran its setup")
     check(rt.g16.device.type == "cuda", "c3's Groth16 is on the card")
+    for name in C3_SETUP_KERNELS if key is None else ():
+        check(out["setup_launches"].get(name, 0) > 0,
+              f"{name} was not launched by c3's setup")
+    say(f"{tag} c3 {'set up on the card' if key is None else 'key written'}"
+        f" through the store: {out['setup_s']:.3f} s (setup"
+        f" {out['artifacts_setup_s']} s), domain 2^{out['domain_log']},"
+        f" pk.bin {out['pk_bin_bytes']} B, vk.bin {out['vk_bin_bytes']} B,"
+        f" launches {out['setup_launches']}, host resident"
+        f" {out['host_rss_gib']:.2f} GiB before, {out['host_peak_gib']:.2f}"
+        f" GiB at the peak")
+    return rt, out
+
+
+def c3_setup_in_memory(params, cs, stages, tag):
+    """[11c] c3 set up on the card with no store: the setup's time,
+    launches (B1 and B6 at L = 64 must be launched), the domain, the key's
+    bytes on the host and on the card, peak device memory and the host's
+    resident set before and at its peak.  Returns (the runtime, the
+    backend, pk, vk, results)."""
+    import gc
+
+    import torch
+
+    from davinci_tpu_torch import kernels as K
+    from davinci_tpu_torch.circuits.artifacts import CircuitRuntime
+    from davinci_tpu_torch.groth16 import Groth16
+    from davinci_tpu_torch.groth16.serialize import cs_structure_hash
+
+    for k in K.KERNELS:
+        k.launches = 0
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    g16 = Groth16("bw6_761")
+    t0 = time.perf_counter()
+    with HostPeak() as host:
+        pk, vk = g16.setup(cs)
+        torch.cuda.synchronize()
+    out = {"setup_s": time.perf_counter() - t0, "domain_log": pk.domain_log,
+           "setup_launches": {k.name: k.launches for k in K.KERNELS
+                              if k.launches},
+           "setup_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "host_rss_gib": host.start_gib, "host_peak_gib": host.peak_gib}
+    out["key_host_bytes"], out["key_card_bytes"] = key_bytes(pk)
     for name in C3_SETUP_KERNELS:
         check(out["setup_launches"].get(name, 0) > 0,
               f"{name} was not launched by c3's setup")
-    say(f"{tag} c3 set up on the card through the store: "
-        f"{out['setup_s']:.3f} s (setup {out['artifacts_setup_s']} s), "
-        f"domain 2^{out['domain_log']}, pk.bin {out['pk_bin_bytes']} B, "
-        f"vk.bin {out['vk_bin_bytes']} B, launches {out['setup_launches']}")
-    return rt, out
+    say(f"{tag} c3 set up on the card in memory: {json.dumps(out)}")
+    rt = CircuitRuntime(params.circuit_id(), "bw6_761", pk, vk,
+                        cs_structure_hash(cs), g16)
+    return rt, g16, pk, vk, out
 
 
 def c3_prove(rt, cs, stages, tag, replay=False):
@@ -1968,33 +2081,18 @@ def c2_only():
     return 0
 
 
-def l64_only():
-    """Phase 1 for the L = 64 libraries and [11a] alone: B1-B6 at L = 64
-    against their plain versions, with ptxas's registers and spills."""
-    import numpy as np
-    import torch
-
-    from davinci_tpu_torch import cuda_build
-
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    t_run = time.perf_counter()
-    device_line()
-    regs = build_phase([(src, cuda_build.WIDE_LIMBS)
-                        for src in cuda_build.WIDE_SOURCES])
-    res = l64_phase(dev, np.random.default_rng(SEED), regs)
-    say(json.dumps({"l64": res, "run_s": time.perf_counter() - t_run}))
-    return 0
-
-
 def c3_only():
     """Phases 5 and 10, then the aggregator (c3) at full size, the
     sequencer's `VOTES_PER_BATCH` slots: the canonical dummy vote's c2
     proof [11e], phase 10's proof as the one real vote, the build [11b],
-    setup through the store [11c], `prove_and_verify` [11d] and two more
-    proves [11f], each verified, then a second store on the same
-    directory that must load with no setup, prove and verify [11g] (no
-    kernel replay)."""
+    setup on the card in memory [11c], `prove_and_verify` [11d] and one
+    more prove [11f], each verified, then the key written through the
+    store [11c], whose write holds the whole key in host memory, and a
+    second store on the same directory that must load it with no setup,
+    prove and verify [11g] (no kernel replay).  The proves come before the
+    store's write so that a host that cannot hold the write still shows
+    them."""
+    import gc
     import tempfile
 
     import torch
@@ -2028,12 +2126,17 @@ def c3_only():
         dummy = c3_dummy(c2_rt, c2_params, inner, "[11e]")
         c2_vk = c2_rt.vk
         del c2_rt
-        out, rt, cs, params = c3_phase(stages, c2_vk, vote, dummy, root,
-                                       n_votes=protocol.VOTES_PER_BATCH,
-                                       replay=False)
-        out["prove"] += [c3_prove(rt, cs, stages, f"[11f] {i}")
-                         for i in range(2)]
+        params, cs, out = c3_build(c2_vk, vote, dummy,
+                                   protocol.VOTES_PER_BATCH, "[11b]")
+        rt, g16, pk, vk, out["in_memory"] = c3_setup_in_memory(
+            params, cs, stages, "[11c]")
+        out["prove"] = [c3_prove(rt, cs, stages, "[11d]"),
+                        c3_prove(rt, cs, stages, "[11f]")]
         del rt
+        gc.collect()
+        _, out["store"] = c3_setup(params, cs, root, stages, "[11c]",
+                                   key=(g16, pk, vk))
+        del g16, pk, vk
         stages.took.clear()
         rt2 = ArtifactStore(root).load_or_setup(params.circuit_id(),
                                                 "bw6_761", cs)
@@ -2259,8 +2362,6 @@ def main(argv) -> int:
         return committed_only()
     if argv == ["--c2"]:
         return c2_only()
-    if argv == ["--l64"]:
-        return l64_only()
     if argv == ["--c3"]:
         return c3_only()
     if argv:

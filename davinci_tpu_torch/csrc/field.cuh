@@ -50,7 +50,9 @@ struct Consts {
   uint32_t one[Radix<L>::N];    // 1 in Montgomery form (R mod p)
   uint32_t b3_small;            // G1: |3b| as an integer where below 2^8,
                                 // else 0 (group6.cuh)
+#if DAVINCI_L > 32
   uint32_t b3_neg;              // 3b = -b3_small (BW6-761 G1: b = -1)
+#endif
 };
 
 template <int L_>

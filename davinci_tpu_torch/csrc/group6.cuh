@@ -74,17 +74,21 @@ __device__ __forceinline__ void times_small(Fp<L>& r, const Fp<L>& a,
   }
 }
 
-// r = 3b a with 3b = +-Consts::b3_small (r may alias a)
+// r = 3b a with 3b = +-Consts::b3_small (r may alias a).  The sign exists
+// only in the L = 64 build (Consts::b3_neg): the L = 22 and 32 builds keep
+// the plain chain of additions, with no run-time test and no extra word.
 template <int L>
 __device__ __forceinline__ void times_b3(Fp<L>& r, const Fp<L>& a,
                                          const Consts<L>& c) {
   times_small(r, a, c.b3_small, c);
+#if DAVINCI_L > 32
   if (c.b3_neg) {
     Fp<L> zero;
 #pragma unroll
     for (int k = 0; k < Fp<L>::N; k++) zero.w[k] = 0;
     sub(r, zero, r, c);
   }
+#endif
 }
 
 // -- G1 ------------------------------------------------------------------------

@@ -155,11 +155,13 @@ def b3_small(p, L, b3_mont):
 
 def b3_signed_small(p, L, b3_mont):
     """(k, neg): 3b = k, or 3b = -k where neg (BW6-761 G1, b = -1: k = 3),
-    for 0 < k < B3_SMALL_MAX; (0, False) where 3b is neither."""
+    for 0 < k < B3_SMALL_MAX; (0, False) where 3b is neither.  The sign is
+    compiled into the L = 64 build alone (csrc/group6.cuh's `times_b3`),
+    so below 64 limbs a negative 3b counts as neither."""
     k = b3_small(p, L, b3_mont)
     if k:
         return k, False
-    k = b3_small(p, L, (p - b3_mont) % p)
+    k = b3_small(p, L, (p - b3_mont) % p) if L > 32 else 0
     return (k, True) if k else (0, False)
 
 

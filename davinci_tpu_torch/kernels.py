@@ -121,8 +121,9 @@ def field_consts(kernel, spec, b3=(0, 0), nr=0, nr_is_m1=False,
     """The Consts struct of csrc/field.cuh for field `spec` as a ctypes
     uint32 array (b3 and nr: Montgomery-form ints of the curve; b3_small:
     G1's |3b| as an integer where it is small, else 0, and b3_neg where 3b
-    is its negative; the six-thread mixed add of csrc/group6.cuh
-    multiplies by it with additions).  Raises
+    is its negative, a word that only the L = 64 build's Consts has; the
+    six-thread mixed add of csrc/group6.cuh multiplies by it with
+    additions).  Raises
     where no build of `kernel` serves the field: L without a build, or a
     modulus of 32N - 1 bits or more (2p must fit N words)."""
     L = spec.num_limbs
