@@ -96,11 +96,11 @@ Phases, one line of output each (any failure raises and exits non-zero):
      kernels of this path (B1-B5, B7 and B5's G2 build at L = 32, B6 at
      L = 22: each must be launched) and peak device memory; [9e] a second
      store on the directory, which must load with no setup, proves and
-     verifies; then one more reuse prove with every kernel call recorded,
-     and each call made again against its plain version (B1-B5, B5's G2
-     build and B7 at L = 32, B6 on BLS12-377's Fr: every call must be
-     equal), with the kernel's and the plain version's times on the
-     largest call; [9f] a plain BLS12-381 Groth16 at a 2^12 domain, set
+     verifies; then one more reuse prove with the first and the largest
+     call of each kernel wrapper recorded, each made again against its
+     plain version (B1-B5, B5's G2 build and B7 at L = 32, B6 on
+     BLS12-377's Fr: every call must be equal), with the kernel's and the
+     plain version's times on the largest call; [9f] a plain BLS12-381 Groth16 at a 2^12 domain, set
      up, proved and verified true and false on the card.
   10. The production vote verifier (c2, BLS12-377, the proof the sequencer
      makes for every vote) from phase 5's c1 proof: [10a] its witness
@@ -130,12 +130,11 @@ Phases, one line of output each (any failure raises and exits non-zero):
      against host oracles, whose B1 planes and B2-B5 calls are held
      against their plain versions (B4 against its split order; B2 on
      G1's 3b = -3) with event, device, plain and bound times and ptxas's
-     registers and spills; then, inside phase 10's store: [11b] c3 at the
-     sequencer's default of 4 slots (`provers.py:59`), production shape
-     (`inner_committed`), from phase 10's c2 key, with phase 10's proof
-     and vote hash in slot 0 and as the padding of slots 1-3 (the latch
-     mask marks one real vote: the circuit is the one the canonical dummy
-     gives), its constraint and variable counts; [11c]
+     registers and spills; then, inside phase 10's store: [11b] c3 at one
+     slot (the sequencer's default is 4, `provers.py:59`: cut to keep the
+     run inside its time), production shape (`inner_committed`), from
+     phase 10's c2 key, with phase 10's proof and vote hash in it, its
+     constraint and variable counts; [11c]
      `ArtifactStore.load_or_setup(..., "bw6_761", cs)` on the card, with
      the sizes of pk.bin and vk.bin, the domain and the setup's launches
      (B1 and B6 at L = 64 must be launched); [11d] `prove_and_verify`,
@@ -145,6 +144,31 @@ Phases, one line of output each (any failure raises and exits non-zero):
      launched); the prove keeps the first and the largest call of each
      kernel wrapper and replays them against their plain versions (every
      call equal).
+  12. The state transition (c4, BN254, the per-batch proof that goes on
+     chain with the blob) and the results verifier (c5, BN254), inside
+     phase 10's store: [12a] c4's witness at 4 votes (the sequencer's
+     default batch) and the production tiers (64 levels, a 20-level
+     census, the blob bound on the full 4,096-cell domain, lookups), as
+     `sequencer/pipeline.py:375-420` makes it, from the election of the
+     reference's scripts/fullsize_c4.py (seeded votes, the LeanIMT
+     census, the 64-level `prepare_votes_batch`; z and y from
+     `pack_batch_blob(..., with_kzg=True)` on the card, checked against
+     the host's barycentric evaluation), each step's seconds; one host
+     build, with its constraint and variable counts, its largest scopes
+     and the host's resident set; [12b] `ArtifactStore.load_or_setup` on
+     the card (pk.bin written a section at a time), with the sizes of
+     pk.bin and vk.bin and the setup's launches; [12c]
+     `prove_and_verify_committed` (the built system re-solved in place as
+     its builder, `resolve`), then one steady `prove_committed_reuse`,
+     each refused by `verify_committed` with root_after + 1, with stage
+     times, the launches of the L = 22 kernels (each must be launched)
+     and peak device memory; the steady prove keeps the first and the
+     largest call of each kernel wrapper and replays them against their
+     plain versions; [12d] c5 at full size (64 levels, 8 fields) on the
+     state the batch left: `results_witness_from_state` with the
+     election's key, the build, `load_or_setup("results-v1", "bn254",
+     cs)` and `prove_and_verify`, refused with results[0] + 1.  A line before each phase gives the
+     seconds since the run began.
 
 The line before the last is a JSON object with one entry per kernel (B8:
 per variant) and limb count, with its registers and spills from ptxas;
@@ -193,6 +217,19 @@ hash + 1, then that key written through the store (the host's resident
 set sampled around the write) and a second store on the same directory
 that must load it with no setup, then prove and verify [11g] (no kernel
 replay).
+
+    python3 chip_smoke.py --c4 [N]
+
+runs phase 12's c4 alone at N votes (default 60, the production batch:
+its count must be the reference's 14,993,781) with `--c3`'s flow: the
+witness and the build [12a], setup on the card in memory [12b],
+`prove_and_verify_committed` [12c] and one steady reuse prove [12e],
+each verified and refused with root_after + 1, then the key written
+through the store a section at a time and a second store on the same
+directory that must load it with no setup, prove and verify [12f] (no
+kernel replay); the host's resident set is sampled around each step and
+printed every 30 s.  At 60 votes it needs about 94 GiB of host memory
+and more than the card's 80 GB in its second prove.
 
     python3 chip_smoke.py --c2-size
 
@@ -255,6 +292,16 @@ def check(cond, what):
         raise RuntimeError(f"check failed: {what}")
 
 
+def lap(tag, t_run):
+    """A line with the seconds since the run began, before a phase."""
+    say(f"{tag} starts {time.perf_counter() - t_run:.1f} s into the run")
+
+
+def bumped(values, i):
+    """`values` with the one at `i` increased by 1: a tampered public."""
+    return [v + (j == i) for j, v in enumerate(values)]
+
+
 def cuda_ms(fn, reps, warm=True):
     """Mean milliseconds per call of fn on the current stream (CUDA events
     around `reps` calls, after one warm-up call unless `warm` is false)."""
@@ -271,6 +318,22 @@ def cuda_ms(fn, reps, warm=True):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def timed_call(fn):
+    """(fn's result, the milliseconds of that one call by CUDA events): a
+    plain version's time from the call that checks a kernel, where a
+    second call would take seconds more."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def host_us_per_call(fn, reps=200):
@@ -745,9 +808,10 @@ class Capture:
     kernel wrapper named (default: the scan path's B2-B5;
     "point_add_planes" adds B1), so they can be replayed: `calls[name]`
     lists them in order, `args[name]` is the first.  With `largest`, only
-    the first call and the largest of the rest (`call_size`) are kept, so
-    a path at full size holds two calls' inputs per wrapper; `counts[name]`
-    is the number of calls made either way."""
+    the first call and the largest of the rest (`call_size`), where that
+    is larger than the first, are kept, so a path at full size holds one
+    or two calls' inputs per wrapper; `counts[name]` is the number of
+    calls made either way."""
 
     WRAPPERS = ("_bucket_scan", "bucket_reduce_kernel",
                 "suffix_reduce_kernel", "horner_kernel")
@@ -781,10 +845,10 @@ class Capture:
             def rec(*args, _name=name, _fn=fn):
                 self.counts[_name] = self.counts.get(_name, 0) + 1
                 calls = self.calls.setdefault(_name, [])
-                if not self.largest or len(calls) < 2:
+                if not self.largest or not calls:
                     calls.append(args)
-                elif call_size(args) > call_size(calls[1]):
-                    calls[1] = args
+                elif call_size(args) > call_size(calls[-1]):
+                    calls[1:] = [args]
                 return _fn(*args)
             setattr(self._module(name), name, rec)
         return self
@@ -852,7 +916,7 @@ def scan_kernels_phase(calls, regs, tag="[4c]"):
     for kernel, run, plain, nbytes, adds, kind, shape in table:
         name = kernel.name + ("_combine" if shape.get("combine") else "")
         got = run()
-        want = plain()
+        want, plain_ms = timed_call(plain)
         err = max_err(got, want)
         check(err == 0, f"{kernel.name} differs from its plain version")
         if kernel.builds[22] is K.B4:  # split order: the reference's points
@@ -861,7 +925,6 @@ def scan_kernels_phase(calls, regs, tag="[4c]"):
                 check(dc.decode_points(cols(g)) == dc.decode_points(cols(w)),
                       f"{kernel.name}: other points than the reference order")
         ms = cuda_ms(run, 5)
-        plain_ms = cuda_ms(plain, 1, warm=False)
         bound_ms, bound_by = bound(nbytes, adds, kind, L)
         rec = res[name] = {**shape, "adds": adds, "max_abs_err": err,
                            "ms": ms, "plain_ms": plain_ms,
@@ -889,12 +952,12 @@ def g2_horner_phase(args, tag):
     kernel = bk.B5G2.at(L)
     run = lambda: bk.horner_g2_kernel(dc, sums, wbits)
     plain = lambda: bk._horner_rows_plain(dc, sums, wbits)
-    err = max_err(run(), plain())
+    want, plain_ms = timed_call(plain)
+    err = max_err(run(), want)
     check(err == 0, f"{kernel.name} differs from its plain version")
     chain = (W - 1) * (wbits + 1)
     ms = cuda_ms(run, 5)
     dev_ms = device_ms(run, 20, "horner_g2_kernel")
-    plain_ms = cuda_ms(plain, 1, warm=False)
     bound_ms, bound_by = bound(3 * 2 * L * (W + 1) * B * 4, B * chain,
                                "add_g2", L)
     out = {"curve": dc.spec.name, "W": W, "B": B, "chain_adds": chain,
@@ -968,9 +1031,14 @@ def replay_phase(cap, tag):
     res = {}
     for name, made in cap.calls.items():
         kernel, plain = getattr(Capture._module(name), name), plains[name]
+        big = max(made, key=call_size)
         err = 0
         for args in made:
-            got, want = flat(kernel(*args)), flat(plain(*args))
+            got = flat(kernel(*args))
+            want, ms = timed_call(lambda: plain(*args))
+            want = flat(want)
+            if args is big:
+                plain_ms = ms
             check(len(got) == len(want) and all(
                 g.shape == w.shape for g, w in zip(got, want)),
                 f"{name}: other shapes than its plain version's")
@@ -978,11 +1046,10 @@ def replay_phase(cap, tag):
                 err = max(err, max_err(got, want))
         check(err == 0, f"{name} differs from its plain version on a call "
                         f"of the path")
-        big = max(made, key=call_size)
         res[name] = {"calls": cap.counts[name], "replayed": len(made),
                      "max_abs_err": err, "largest": call_size(big),
                      "ms": cuda_ms(lambda: kernel(*big), 3),
-                     "plain_ms": cuda_ms(lambda: plain(*big), 1, warm=False)}
+                     "plain_ms": plain_ms}
         say(f"{tag} {name} {res[name]}")
     return res
 
@@ -1475,11 +1542,12 @@ def committed_phase(dev, stages, chain=COMMITTED_CHAIN, steady=1):
 
 
 def committed_kernels_phase(rt, lo):
-    """Phase 9d's kernels: one more reuse prove with every kernel call
-    recorded (verified), then each call against its plain version
-    (`replay_phase`): B1-B5 and B5's G2 build at L = 32, B6 on BLS12-377's
-    Fr, B7 at L = 32, at committed-377's own shapes."""
-    with Capture(Capture.PROVE) as cap:
+    """Phase 9d's kernels: one more reuse prove with the first and the
+    largest call of each kernel wrapper recorded (verified), then each
+    against its plain version (`replay_phase`): B1-B5 and B5's G2 build at
+    L = 32, B6 on BLS12-377's Fr, B7 at L = 32, at committed-377's own
+    shapes."""
+    with Capture(Capture.PROVE, largest=True) as cap:
         proof = rt.prove_committed_reuse(lo)
     check(rt.verify_committed(proof, lo.public_values()),
           "the recorded proof does not verify")
@@ -1602,11 +1670,12 @@ def c2_inputs(c1):
     return params, w
 
 
-def c2_reuse_prove(rt, cs, stages, tag, replay=False):
-    """One steady `prove_committed_reuse` of c2, verified and refused with a
-    tampered public value; its stage times (`groth16.refinalize`: the
-    challenge's wires re-solved on the host), the launches of the
-    committed path's kernels (each must be launched) and peak memory.
+def reuse_prove(rt, cs, stages, tag, replay=False, what="c2",
+                kernels=COMMITTED_KERNELS, tamper=0):
+    """One steady `prove_committed_reuse` of `what` (c2, c4), verified and
+    refused with public value `tamper` + 1; its stage times
+    (`groth16.refinalize`: the challenge's wires re-solved on the host),
+    the launches of `kernels` (each must be launched) and peak memory.
     With `replay`, the first and the largest call of each kernel wrapper
     are kept (their inputs stay on the card to the end of the prove, so
     the peak counts them) and made again against their plain versions
@@ -1630,26 +1699,26 @@ def c2_reuse_prove(rt, cs, stages, tag, replay=False):
            "stages_s": {name: stages.took.get(name)
                         for name in COMMITTED_STAGES},
            "launches": {k.name: k.launches for k in K.KERNELS
-                        if k.name in COMMITTED_KERNELS},
+                        if k.name in kernels},
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
            "inputs_held_for_replay": replay}
     rec["rest_s"] = rec["prove_s"] - sum(
         v or 0 for v in rec["stages_s"].values())
     for name, n in rec["launches"].items():
-        check(n > 0, f"{name} was not launched by c2's steady prove")
+        check(n > 0, f"{name} was not launched by {what}'s steady prove")
     public = cs.public_values()
     t0 = time.perf_counter()
     check(rt.verify_committed(proof, public),
-          f"{tag} c2 proof does not verify")
+          f"{tag} {what} proof does not verify")
     rec["verify_s"] = time.perf_counter() - t0
-    check(not rt.verify_committed(proof, [public[0] + 1]),
-          f"{tag} c2 proof verifies against a tampered public value")
-    say(f"{tag} steady c2 prove: {json.dumps(rec)}")
+    check(not rt.verify_committed(proof, bumped(public, tamper)),
+          f"{tag} {what} proof verifies with public value {tamper} + 1")
+    say(f"{tag} steady {what} prove: {json.dumps(rec)}")
     if replay:
         # B1's rows serve setup and the fused route, which a prove may not
         # reach
         missing = set(cap.names) - set(cap.calls) - {"point_add"}
-        check(not missing, f"c2's prove called no {sorted(missing)}")
+        check(not missing, f"{what}'s prove called no {sorted(missing)}")
         t0 = time.perf_counter()
         rec["kernels"] = replay_phase(cap, tag)
         rec["replay_s"] = time.perf_counter() - t0
@@ -1708,12 +1777,14 @@ def c2_phase(stages, c1, root, replay=True):
         f"{out['setup_s']:.3f} s (setup {out['artifacts_setup_s']} s), "
         f"domain 2^{out['domain_log']}, pk.bin {out['pk_bin_bytes']} B, "
         f"vk.bin {out['vk_bin_bytes']} B, structure {out['structure_hash']}")
-    rec, proof = c2_reuse_prove(rt, cs, stages, "[10d]", replay=replay)
+    rec, proof = reuse_prove(rt, cs, stages, "[10d]", replay=replay)
     out["steady"] = [rec]
     return out, rt, cs, build, proof, params
 
 
-C3_SLOTS = 4  # the sequencer's default batch (provers.py:59, n_votes_agg)
+# the default run's c3: one slot (the sequencer's default is 4,
+# provers.py:59; one keeps c3's domain at 2^18 and the run inside its time)
+C3_SLOTS = 1
 C3_STAGES = ("groth16.witness_reduce_dev", "groth16.quotient_ntt",
              "groth16.msms")
 # the kernels of a BW6-761 prove: both groups' MSMs on the scan path at
@@ -1803,6 +1874,21 @@ class HostPeak:
         self.peak_gib = max(self.peak_gib, self.rss_gib())
 
 
+def rss_trail(t_run, every=30.0):
+    """Print the host's resident set every `every` seconds on a daemon
+    thread, so that a run the machine ends for memory leaves its last
+    reading in the log."""
+    import threading
+
+    def trail():
+        while True:
+            time.sleep(every)
+            say(f"[rss] {time.perf_counter() - t_run:.0f} s: "
+                f"{HostPeak.rss_gib():.2f} GiB resident")
+
+    threading.Thread(target=trail, daemon=True).start()
+
+
 def key_bytes(pk):
     """(host, card) bytes of a proving key's base sets: the numpy
     coordinates and the tensors uploaded and packed from them."""
@@ -1821,11 +1907,13 @@ def key_bytes(pk):
     return host, card
 
 
-def c3_setup(params, cs, root, stages, tag, key=None):
-    """[11c] c3 set up on the card through the store under `root`: sizes
-    of pk.bin and vk.bin, the domain, the setup's launches (B1 and B6 at
-    L = 64 must be launched) and the host's resident set before and at
-    its peak.  With `key`, (Groth16 backend, pk, vk) of a setup already
+def store_setup(cid, cs, root, stages, tag, key=None, curve="bw6_761",
+                what="c3", setup_kernels=C3_SETUP_KERNELS):
+    """[11c] `what` (c3; c4, c5 on BN254) set up on the card through the
+    store under `root` as circuit `cid`: sizes of pk.bin and vk.bin, the
+    domain, the setup's launches (each of `setup_kernels` must be
+    launched; c3: B1 and B6 at L = 64) and the host's resident set before
+    and at its peak.  With `key`, (Groth16 backend, pk, vk) of a setup already
     made, the store writes that key (`KeyedGroth16`) and launches nothing.
     Returns (the runtime, results)."""
     import gc
@@ -1835,7 +1923,6 @@ def c3_setup(params, cs, root, stages, tag, key=None):
     from davinci_tpu_torch import kernels as K
     from davinci_tpu_torch.circuits.artifacts import ArtifactStore
 
-    cid = params.circuit_id()
     for k in K.KERNELS:
         k.launches = 0
     stages.took.clear()
@@ -1844,7 +1931,7 @@ def c3_setup(params, cs, root, stages, tag, key=None):
     with HostPeak() as host:
         say(f"{tag} host resident {host.start_gib:.2f} GiB before the store")
         rt = ArtifactStore(root).load_or_setup(
-            cid, "bw6_761", cs, g16=key and KeyedGroth16(*key))
+            cid, curve, cs, g16=key and KeyedGroth16(*key))
     torch.cuda.synchronize()
     out = {"setup_s": time.perf_counter() - t0,
            "artifacts_setup_s": stages.took.get("artifacts.setup"),
@@ -1855,12 +1942,14 @@ def c3_setup(params, cs, root, stages, tag, key=None):
            "setup_launches": {k.name: k.launches for k in K.KERNELS
                               if k.launches},
            "host_rss_gib": host.start_gib, "host_peak_gib": host.peak_gib}
-    check(out["artifacts_setup_s"] is not None, "c3's store ran its setup")
-    check(rt.g16.device.type == "cuda", "c3's Groth16 is on the card")
-    for name in C3_SETUP_KERNELS if key is None else ():
+    check(out["artifacts_setup_s"] is not None,
+          f"{what}'s store ran its setup")
+    check(rt.g16.device.type == "cuda", f"{what}'s Groth16 is on the card")
+    for name in setup_kernels if key is None else ():
         check(out["setup_launches"].get(name, 0) > 0,
-              f"{name} was not launched by c3's setup")
-    say(f"{tag} c3 {'set up on the card' if key is None else 'key written'}"
+              f"{name} was not launched by {what}'s setup")
+    done = "set up on the card" if key is None else "key written"
+    say(f"{tag} {what} {done}"
         f" through the store: {out['setup_s']:.3f} s (setup"
         f" {out['artifacts_setup_s']} s), domain 2^{out['domain_log']},"
         f" pk.bin {out['pk_bin_bytes']} B, vk.bin {out['vk_bin_bytes']} B,"
@@ -1870,11 +1959,12 @@ def c3_setup(params, cs, root, stages, tag, key=None):
     return rt, out
 
 
-def c3_setup_in_memory(params, cs, stages, tag):
-    """[11c] c3 set up on the card with no store: the setup's time,
-    launches (B1 and B6 at L = 64 must be launched), the domain, the key's
-    bytes on the host and on the card, peak device memory and the host's
-    resident set before and at its peak.  Returns (the runtime, the
+def setup_in_memory(params, cs, stages, tag, curve="bw6_761", what="c3",
+                    setup_kernels=C3_SETUP_KERNELS):
+    """[11c] `what` (c3, c4) set up on the card with no store: the setup's
+    time, launches (each of `setup_kernels` must be launched), the domain,
+    the key's bytes on the host and on the card, peak device memory and
+    the host's resident set before and at its peak.  Returns (the runtime, the
     backend, pk, vk, results)."""
     import gc
 
@@ -1889,7 +1979,7 @@ def c3_setup_in_memory(params, cs, stages, tag):
         k.launches = 0
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
-    g16 = Groth16("bw6_761")
+    g16 = Groth16(curve)
     t0 = time.perf_counter()
     with HostPeak() as host:
         pk, vk = g16.setup(cs)
@@ -1900,20 +1990,22 @@ def c3_setup_in_memory(params, cs, stages, tag):
            "setup_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
            "host_rss_gib": host.start_gib, "host_peak_gib": host.peak_gib}
     out["key_host_bytes"], out["key_card_bytes"] = key_bytes(pk)
-    for name in C3_SETUP_KERNELS:
+    for name in setup_kernels:
         check(out["setup_launches"].get(name, 0) > 0,
-              f"{name} was not launched by c3's setup")
-    say(f"{tag} c3 set up on the card in memory: {json.dumps(out)}")
-    rt = CircuitRuntime(params.circuit_id(), "bw6_761", pk, vk,
+              f"{name} was not launched by {what}'s setup")
+    say(f"{tag} {what} set up on the card in memory: {json.dumps(out)}")
+    rt = CircuitRuntime(params.circuit_id(), curve, pk, vk,
                         cs_structure_hash(cs), g16)
     return rt, g16, pk, vk, out
 
 
-def c3_prove(rt, cs, stages, tag, replay=False):
-    """[11d] `prove_and_verify` of c3, and `verify` false with the batch
-    hash + 1: the stage times (witness, quotient NTT, MSMs, the rest of
-    the prove), the launches of B1-B5 at L = 64 and B6 at L = 32 (each
-    must be launched) and peak device memory.  With `replay`, the first
+def prove_verify(rt, cs, stages, tag, replay=False, what="c3",
+                 kernels=C3_PROVE_KERNELS, wrappers=C3_WRAPPERS, tamper=0):
+    """[11d] `prove_and_verify` of `what` (c3, c5), and `verify` false with
+    public value `tamper` + 1 (c3: the batch hash): the stage times
+    (witness, quotient NTT, MSMs, the rest of the prove), the launches of
+    `kernels` (c3: B1-B5 at L = 64 and B6 at L = 32; each must be
+    launched) and peak device memory.  With `replay`, the first
     and the largest call of each kernel wrapper are kept and made again
     against their plain versions (`replay_phase`)."""
     import contextlib
@@ -1926,7 +2018,7 @@ def c3_prove(rt, cs, stages, tag, replay=False):
     for k in K.KERNELS:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    cap = Capture(C3_WRAPPERS, largest=True)
+    cap = Capture(wrappers, largest=True)
     t0 = time.perf_counter()
     with cap if replay else contextlib.nullcontext():
         proof = rt.prove_and_verify(cs)
@@ -1937,22 +2029,21 @@ def c3_prove(rt, cs, stages, tag, replay=False):
            "verify_s": total - prove_s if prove_s is not None else None,
            "stages_s": {name: stages.took.get(name) for name in C3_STAGES},
            "launches": {k.name: k.launches for k in K.KERNELS
-                        if k.name in C3_PROVE_KERNELS},
+                        if k.name in kernels},
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
            "inputs_held_for_replay": replay}
     rec["rest_s"] = (prove_s or total) - sum(
         v or 0 for v in rec["stages_s"].values())
     for name, n in rec["launches"].items():
-        check(n > 0, f"{name} was not launched by c3's prove")
-    public = cs.public_values()
-    check(not rt.verify(proof, [public[0] + 1]),
-          f"{tag} c3 proof verifies with the batch hash + 1")
-    say(f"{tag} c3 prove_and_verify, false for the batch hash + 1: "
-        f"{json.dumps(rec)}")
+        check(n > 0, f"{name} was not launched by {what}'s prove")
+    check(not rt.verify(proof, bumped(cs.public_values(), tamper)),
+          f"{tag} {what} proof verifies with public value {tamper} + 1")
+    say(f"{tag} {what} prove_and_verify, false for public value {tamper} + "
+        f"1: {json.dumps(rec)}")
     if replay:
         # B1's rows serve setup, which a prove may not reach
         missing = set(cap.names) - set(cap.calls) - {"point_add"}
-        check(not missing, f"c3's prove called no {sorted(missing)}")
+        check(not missing, f"{what}'s prove called no {sorted(missing)}")
         t0 = time.perf_counter()
         rec["kernels"] = replay_phase(cap, tag)
         rec["replay_s"] = time.perf_counter() - t0
@@ -1966,9 +2057,9 @@ def c3_phase(stages, c2_vk, vote, dummy, root, n_votes=C3_SLOTS,
     `root` [11c], proved and verified [11d].  Returns (results, the
     runtime, the built system, its parameters)."""
     params, cs, out = c3_build(c2_vk, vote, dummy, n_votes, "[11b]")
-    rt, setup = c3_setup(params, cs, root, stages, "[11c]")
+    rt, setup = store_setup(params.circuit_id(), cs, root, stages, "[11c]")
     out.update(setup)
-    out["prove"] = [c3_prove(rt, cs, stages, "[11d]", replay=replay)]
+    out["prove"] = [prove_verify(rt, cs, stages, "[11d]", replay=replay)]
     return out, rt, cs, params
 
 
@@ -1998,6 +2089,333 @@ def c3_dummy(c2_rt, c2_params, c1, tag):
         f"{time.perf_counter() - t0:.3f} s (one build): vote hash "
         f"{vote_hash:#x}")
     return proof, vote_hash
+
+
+C4_SEED = 0xC460  # the election of the reference's scripts/fullsize_c4.py
+C4_PROCESS_ID = 424260
+C4_VOTES = 4  # the sequencer's default batch (provers.py:59), phase 12's
+C4_TIERS = {"n_levels": 64, "census_levels": 20, "include_blob": True,
+            "blob_domain_bits": 12, "use_lookup": True}  # the production's
+# the reference's builds at these tiers (BENCH_NOTES.md:17, 106-108)
+C4_CONSTRAINTS = {2: 1563441, 60: 14993781}
+# the kernels of a BN254 prove, committed or not: c1's (B1-B7 and B5's G2
+# build at L = 22); of a BN254 setup: the G1 rows (B1) and the Fr
+# products (B6)
+BN254_KERNELS = ("point_add_g1", "bucket_scan_g1", "bucket_reduce_g1",
+                 "suffix_reduce_g1", "horner_g1", "mont_mul",
+                 "point_add_g2", "horner_g2")
+BN254_SETUP_KERNELS = ("point_add_g1", "mont_mul")
+C5_ID = "results-v1"  # the finalizer's (sequencer/pipeline.py:478)
+C5_MAX_MESSAGE = 1 << 16  # the decryption's search bound: results <= votes
+
+
+def c4_inputs(n_votes, tag):
+    """[12a] c4's parameters and witness at `n_votes` votes and the
+    production tiers, as the sequencer makes them
+    (`sequencer/pipeline.py:375-420`), from the election of the
+    reference's scripts/fullsize_c4.py:58-110 (one seeded
+    `random.Random`): encrypted and re-encrypted votes, a 20-level LeanIMT
+    census, the 64-level `prepare_votes_batch`, and z and y from the
+    port's `pack_batch_blob(..., with_kzg=True)` (phase 7's blob path on
+    the card), checked against the host's barycentric evaluation.
+    Returns (params, witness, the state after the batch, the election's
+    private key, the seconds of each step)."""
+    import torch
+
+    from davinci_tpu_torch import spec as protocol
+    from davinci_tpu_torch.ballotmode import BallotMode
+    from davinci_tpu_torch.census import CensusDB
+    from davinci_tpu_torch.circuits.blob_gadget import barycentric_eval_host
+    from davinci_tpu_torch.circuits.statetransition import (
+        StateTransitionParams,
+        StateTransitionWitness,
+        _blob_domain,
+    )
+    from davinci_tpu_torch.elgamal import Ballot, generate_key
+    from davinci_tpu_torch.state import State, Vote, ballot_index_key
+    from davinci_tpu_torch.state.blobcodec import pack_batch_blob
+
+    took = {}
+    t0 = time.perf_counter()
+    rng = random.Random(C4_SEED)
+    pub, priv = generate_key(rng)
+    bm = BallotMode()
+    st = State(C4_PROCESS_ID)
+    st.initialize(1, bm.pack(), (pub.x, pub.y))
+    votes, ks = [], []
+    for i in range(n_votes):
+        choice = [0] * protocol.FIELDS_PER_BALLOT
+        choice[i % protocol.FIELDS_PER_BALLOT] = 1
+        b = Ballot.encrypt(choice, pub, rng.randrange(1, 2**200))
+        k_re = rng.randrange(1, 2**200)
+        reenc, _ = b.reencrypt(pub, k_re)
+        votes.append(Vote(address=rng.randrange(2**160),
+                          ballot_index=ballot_index_key(i),
+                          vote_id=protocol.VOTE_ID_MIN + rng.randrange(2**40),
+                          ballot=b, reencrypted_ballot=reenc, weight=1))
+        ks.append(k_re)
+    took["votes_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cdb = CensusDB()
+    cdb.new("c")
+    for v in votes:
+        cdb.insert("c", v.address, v.weight)
+    census_root = cdb.publish("c")
+    tree = cdb.by_id["c"].tree
+    cproofs = []
+    for i in range(n_votes):
+        _, sibs, acts, bits = tree.prove_circuit(i, C4_TIERS["census_levels"])
+        cproofs.append({"kind": "merkle", "siblings": sibs, "actives": acts,
+                        "index_bits": bits, "index": i})
+    took["census_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    batch = st.prepare_votes_batch(votes)
+    took["prepare_votes_batch_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    blob = pack_batch_blob(C4_PROCESS_ID, batch, with_kzg=True)
+    torch.cuda.synchronize()
+    took["pack_batch_blob_s"] = time.perf_counter() - t0
+    cells = list(batch.new_results.coords()) + [len(batch.votes)]
+    for v in batch.votes:
+        cells += [v.vote_id, v.address, v.ballot_index, v.weight]
+        cells += v.reencrypted_ballot.coords()
+    dom = _blob_domain(C4_TIERS["blob_domain_bits"])
+    t0 = time.perf_counter()
+    check(blob["n_cells"] == len(cells)
+          and blob["y"] == barycentric_eval_host(
+              dom, cells + [0] * (len(dom) - len(cells)), blob["z"]),
+          "the blob's y is the host's barycentric evaluation at its z")
+    took["barycentric_host_s"] = time.perf_counter() - t0
+
+    params = StateTransitionParams(n_votes=n_votes, **C4_TIERS)
+    w = StateTransitionWitness(
+        batch=batch, process_id=C4_PROCESS_ID, ballot_mode_packed=bm.pack(),
+        encryption_key=(pub.x, pub.y), census_origin=1, reenc_k=ks,
+        inputs_hashes=[rng.randrange(1 << 250) for _ in votes],
+        census_root=census_root, census_proofs=cproofs,
+        blob_z=blob["z"], blob_y=blob["y"])
+    say(f"{tag} c4 witness, {n_votes} votes: {blob['n_cells']} blob cells, "
+        f"z {blob['z']:#x}, y {blob['y']:#x}, seconds {json.dumps(took)}")
+    return params, w, st, priv, took
+
+
+def c4_build(params, w, tag):
+    """[12a] c4 built once on the host, as the sequencer builds it before
+    its store (`sequencer/provers.py:261-270`): the constraint, variable
+    and committed-wire counts against the reference's, the domain, the
+    constraints of the largest scopes, the build's seconds and the host's
+    resident set before and at its peak.  Returns (the system, results)."""
+    import gc
+    from collections import Counter
+
+    from davinci_tpu_torch.circuits.statetransition import (
+        build_state_transition_circuit,
+    )
+
+    gc.collect()
+    t0 = time.perf_counter()
+    with HostPeak() as host:
+        cs = build_state_transition_circuit(params, w)
+    n = len(cs.constraints)
+    out = {"votes": params.n_votes, "build_s": time.perf_counter() - t0,
+           "constraints": n, "variables": cs.num_variables,
+           "committed": len(cs.committed), "public": cs.num_public,
+           "host_rss_gib": host.start_gib, "host_peak_gib": host.peak_gib,
+           "reference_constraints": C4_CONSTRAINTS.get(params.n_votes)}
+    out["scopes"] = dict(Counter(
+        label.split("/")[0].rstrip("0123456789").rstrip("-")
+        for label in cs._labels.values()).most_common())
+    out["unlabeled"] = n - len(cs._labels)
+    publics = cs.public_values()
+    check(publics[:3] == [w.batch.root_before, w.batch.root_after,
+                          w.batch_hash(params)],
+          "c4's publics are root_before, root_after and the batch hash")
+    say(f"{tag} c4 built: {json.dumps(out)}")
+    if out["reference_constraints"] is not None:
+        check(n == out["reference_constraints"],
+              f"c4 at {params.n_votes} votes has the reference's "
+              f"{out['reference_constraints']} constraints")
+    return cs, out
+
+
+def resolve(cs):
+    """A `build_fn` for `prove_committed` that hands back `cs`, already
+    built, re-solved in place for (challenge, blind): its blind wire set,
+    then the challenge's wires through its `_refinalize` hook (for the
+    first phase's challenge 0, `prove_committed` re-solves them itself
+    once it has D).  The sequencer builds c4 a second time there
+    (`provers.py:278-285`); at full size the host holds one system."""
+    def build(challenge, blind):
+        cs.values[cs.committed[-1]] = blind
+        if challenge:
+            cs._refinalize(challenge)
+        return cs
+    return build
+
+
+def c4_first_prove(rt, cs, stages, tag):
+    """[12c] `prove_and_verify_committed` of c4 (`resolve` as its builder),
+    and `verify_committed` false with root_after + 1: the seconds, the
+    stage times, the launches of the L = 22 kernels (each must be
+    launched), peak device memory and the host's resident set.  Returns
+    (results, the proof)."""
+    import torch
+
+    from davinci_tpu_torch import kernels as K
+
+    stages.took.clear()
+    for k in K.KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    public = cs.public_values()
+    t0 = time.perf_counter()
+    with HostPeak() as host:
+        proof = rt.prove_and_verify_committed(resolve(cs), public)
+        torch.cuda.synchronize()
+    rec = {"prove_and_verify_s": time.perf_counter() - t0,
+           "stages_s": {name: stages.took.get(name)
+                        for name in COMMITTED_STAGES
+                        + ("circuit.prove_committed",)},
+           "launches": {k.name: k.launches for k in K.KERNELS
+                        if k.name in BN254_KERNELS},
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "host_rss_gib": host.start_gib, "host_peak_gib": host.peak_gib}
+    for name, n in rec["launches"].items():
+        check(n > 0, f"{name} was not launched by c4's committed prove")
+    check(not rt.verify_committed(proof, bumped(public, 1)),
+          f"{tag} c4 proof verifies with root_after + 1")
+    say(f"{tag} c4 prove_and_verify_committed, false for root_after + 1: "
+        f"{json.dumps(rec)}")
+    return rec, proof
+
+
+def c5_phase(st, priv, root, stages, tag):
+    """[12d] the results verifier (c5) at full size (64 levels, 8 fields)
+    on the state [12a]'s batch left, as the finalizer proves it
+    (`sequencer/pipeline.py:456-490`): `results_witness_from_state` with
+    the election's private key, the build, `load_or_setup("results-v1",
+    "bn254", cs)` through the store under `root` and `prove_and_verify`,
+    refused with results[0] + 1 (no replay: c5's kernel calls are c4's
+    wrappers at c4's largest sizes, which [12c] replays)."""
+    from davinci_tpu_torch.circuits.results import (
+        build_results_circuit,
+        results_witness_from_state,
+    )
+
+    t0 = time.perf_counter()
+    w = results_witness_from_state(st, priv, C5_MAX_MESSAGE,
+                                   random.Random(SEED))
+    out = {"witness_s": time.perf_counter() - t0, "results": w.results}
+    t0 = time.perf_counter()
+    cs = build_results_circuit(w)
+    out.update(build_s=time.perf_counter() - t0,
+               constraints=len(cs.constraints), variables=cs.num_variables)
+    check(cs.public_values() == [st.root] + w.results,
+          "c5's publics are the state root and the results")
+    say(f"{tag} c5 built: {json.dumps(out)}")
+    rt, out["setup"] = store_setup(C5_ID, cs, root, stages, tag,
+                                   curve="bn254", what="c5",
+                                   setup_kernels=BN254_SETUP_KERNELS)
+    out["prove"] = prove_verify(rt, cs, stages, tag, what="c5",
+                                kernels=BN254_KERNELS, tamper=1)
+    return out
+
+
+def c4_phase(stages, root):
+    """Phase 12: c4 at `C4_VOTES` votes and the production tiers, its
+    witness [12a], one build [12a], setup through the store under `root`
+    [12b], `prove_and_verify_committed` and one steady reuse prove whose
+    kernel calls are replayed against their plain versions [12c]; then c5
+    at full size on the state the batch left [12d]."""
+    params, w, st, priv, out = c4_inputs(C4_VOTES, "[12a]")
+    cs, out["build"] = c4_build(params, w, "[12a]")
+    rt, out["setup"] = store_setup(
+        params.circuit_id(), cs, root, stages, "[12b]", curve="bn254",
+        what="c4", setup_kernels=BN254_SETUP_KERNELS)
+    out["first_prove"], _ = c4_first_prove(rt, cs, stages, "[12c]")
+    out["steady"], _ = reuse_prove(rt, cs, stages, "[12c]", replay=True,
+                                   what="c4", kernels=BN254_KERNELS,
+                                   tamper=1)
+    del rt, cs
+    out["c5"] = c5_phase(st, priv, root, stages, "[12d]")
+    return out
+
+
+def c4_only(n_votes):
+    """`--c4 [N]`: c4 at N votes (default 60, the production batch, whose
+    count must be the reference's 14,993,781) and the production tiers,
+    the flow of `--c3`: the witness and the build [12a], setup on the card
+    in memory [12b], `prove_and_verify_committed` [12c] and one steady
+    reuse prove [12e], each verified and refused with root_after + 1, then
+    the key written through the store, a section at a time, and a second
+    store on the same directory that must load it with no setup, prove
+    and verify [12f] (no kernel replay); the host's resident set sampled
+    around each step and printed every 30 s (`rss_trail`)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from davinci_tpu_torch import log
+    from davinci_tpu_torch.circuits.artifacts import ArtifactStore
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_run = time.perf_counter()
+    device_line()
+    rss_trail(t_run)
+    build_phase([(src, limbs) for src in ("point_add", "bucket", "mont_mul")
+                 for limbs in (22, 32)])
+    stages = StageTimes()
+    log.init()
+    logging.getLogger("davinci").addHandler(stages)
+    params, w, _, _, out = c4_inputs(n_votes, "[12a]")
+    cs, out["build"] = c4_build(params, w, "[12a]")
+    del w
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="store-", dir=ROOT / "build"))
+    try:
+        rt, g16, pk, vk, out["in_memory"] = setup_in_memory(
+            params, cs, stages, "[12b]", curve="bn254", what="c4",
+            setup_kernels=BN254_SETUP_KERNELS)
+        out["first_prove"], _ = c4_first_prove(rt, cs, stages, "[12c]")
+        with HostPeak() as host:
+            out["steady"], _ = reuse_prove(rt, cs, stages, "[12e]",
+                                           what="c4", kernels=BN254_KERNELS,
+                                           tamper=1)
+        out["steady"]["host_peak_gib"] = host.peak_gib
+        del rt
+        gc.collect()
+        _, out["store"] = store_setup(
+            params.circuit_id(), cs, root, stages, "[12b]",
+            key=(g16, pk, vk), curve="bn254", what="c4")
+        del g16, pk, vk
+        gc.collect()
+        stages.took.clear()
+        with HostPeak() as host:
+            rt2 = ArtifactStore(root).load_or_setup(params.circuit_id(),
+                                                    "bn254", cs)
+        check("artifacts.load" in stages.took
+              and "artifacts.setup" not in stages.took,
+              "the second store loaded c4's key with no setup")
+        out["second_store_load_s"] = stages.took["artifacts.load"]
+        out["second_store_load_host_peak_gib"] = host.peak_gib
+        out["second_store"], _ = reuse_prove(
+            rt2, cs, stages, "[12f]", what="c4", kernels=BN254_KERNELS,
+            tamper=1)
+        say(f"[12f] a second store loaded c4's key with no setup in "
+            f"{out['second_store_load_s']} s, proved and verified")
+    finally:
+        shutil.rmtree(root)
+    out["run_s"] = time.perf_counter() - t_run
+    say(json.dumps({"c4": out}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def c1_phase(dev, stages, kernels):
@@ -2059,7 +2477,7 @@ def c2_only():
         cs = built.pop()
         say(f"[10e] prove_and_verify_committed: "
             f"{out['first_prove_and_verify_s']:.3f} s (one build)")
-        out["steady"] += [c2_reuse_prove(rt, cs, stages, f"[10e] {i}")[0]
+        out["steady"] += [reuse_prove(rt, cs, stages, f"[10e] {i}")[0]
                           for i in range(2)]
 
         stages.took.clear()
@@ -2068,7 +2486,7 @@ def c2_only():
               and "artifacts.setup" not in stages.took,
               "the second store loaded c2's key with no setup")
         out["second_store_load_s"] = stages.took["artifacts.load"]
-        out["second_store"] = c2_reuse_prove(rt2, cs, stages, "[10f]")[0]
+        out["second_store"] = reuse_prove(rt2, cs, stages, "[10f]")[0]
         say(f"[10f] a second store loaded c2's key with no setup in "
             f"{out['second_store_load_s']} s, proved and verified")
     finally:
@@ -2128,14 +2546,14 @@ def c3_only():
         del c2_rt
         params, cs, out = c3_build(c2_vk, vote, dummy,
                                    protocol.VOTES_PER_BATCH, "[11b]")
-        rt, g16, pk, vk, out["in_memory"] = c3_setup_in_memory(
+        rt, g16, pk, vk, out["in_memory"] = setup_in_memory(
             params, cs, stages, "[11c]")
-        out["prove"] = [c3_prove(rt, cs, stages, "[11d]"),
-                        c3_prove(rt, cs, stages, "[11f]")]
+        out["prove"] = [prove_verify(rt, cs, stages, "[11d]"),
+                        prove_verify(rt, cs, stages, "[11f]")]
         del rt
         gc.collect()
-        _, out["store"] = c3_setup(params, cs, root, stages, "[11c]",
-                                   key=(g16, pk, vk))
+        _, out["store"] = store_setup(params.circuit_id(), cs, root, stages,
+                                      "[11c]", key=(g16, pk, vk))
         del g16, pk, vk
         stages.took.clear()
         rt2 = ArtifactStore(root).load_or_setup(params.circuit_id(),
@@ -2144,7 +2562,7 @@ def c3_only():
               and "artifacts.setup" not in stages.took,
               "the second store loaded c3's key with no setup")
         out["second_store_load_s"] = stages.took["artifacts.load"]
-        out["second_store"] = c3_prove(rt2, cs, stages, "[11g]")
+        out["second_store"] = prove_verify(rt2, cs, stages, "[11g]")
         say(f"[11g] a second store loaded c3's key with no setup in "
             f"{out['second_store_load_s']} s, proved and verified")
     finally:
@@ -2364,6 +2782,8 @@ def main(argv) -> int:
         return c2_only()
     if argv == ["--c3"]:
         return c3_only()
+    if argv[:1] == ["--c4"] and len(argv) <= 2:
+        return c4_only(int(argv[1]) if argv[1:] else 60)
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2389,6 +2809,7 @@ def main(argv) -> int:
     # the blob path: every L = 32 build but G2's, which 3b's MSM drives
     kernels32 = [k for k in K.KERNELS if k.limbs == 32
                  and k not in (K.B7_L32, K.B5G2_L32)]
+    lap("[2]", t_run)
     b1 = {name: b1_phase(dev, name) for name in ("bn254_g1", "bls381_g1")}
     # the kernels line: B1 at the scan path's leftover merge, Wt x COLS
     res = {K.B1.name: b1["bn254_g1"]["planes"][B1_SIZES[1]]}
@@ -2400,6 +2821,7 @@ def main(argv) -> int:
     say(f"[3b] BLS12-377 G2 MSM through msm equal to the host oracle: "
         f"{g2_msm}")
 
+    lap("[4]", t_run)
     case = tiled_msm_case(dev, rng_np)
     say(f"[4a] fused G1 MSM equal to the host oracle: "
         f"{msm_phase(pippenger._msm_fused, case)}")
@@ -2414,22 +2836,28 @@ def main(argv) -> int:
     stages = StageTimes()
     log.init()
     logging.getLogger("davinci").addHandler(stages)
+    lap("[5]", t_run)
     c1, inner, horner_g2 = c1_phase(dev, stages, kernels)
     for args in (horner_g2, g2_horner_l32):  # c1's b2 sums, then 3b's
         name, out = g2_horner_phase(args, "[5b]")
         res[name] = out
 
+    lap("[6]", t_run)
     b6 = mont_mul_phase(dev)
     res[K.B6.name] = b6["bn254_fr"]  # the c1 NTT's field
     res[K.B6_L32.name] = b6["bls12_381_fp"]  # the blob path's base field
+    lap("[7]", t_run)
     blob, blob_res = blob_phase(dev, kernels32, rng, rng_np, regs)
     res.update(blob_res)
     say(f"[7] blob summary {json.dumps(blob)}")
     # phase 8 at the experiment's n alone: the default run's time goes to
     # phase 11 (`--b3-b8` runs phase 8 at both sizes)
+    lap("[8]", t_run)
     addk_res, addk_launches = addk_phase(dev, ADDK_SIZES[:1])
     res.update(addk_res)
+    lap("[11a]", t_run)
     res.update(l64_phase(dev, rng_np, regs))
+    lap("[9]", t_run)
     committed, rt, lo = committed_phase(dev, stages)
     committed["kernels"] = committed_kernels_phase(rt, lo)
     del rt, lo
@@ -2438,18 +2866,22 @@ def main(argv) -> int:
     (ROOT / "build").mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="store-", dir=ROOT / "build"))
     try:
+        lap("[10]", t_run)
         c2, c2_rt, c2_cs, _, c2_proof, _ = c2_phase(stages, inner, root)
         say(f"[10] summary {json.dumps(c2)}")
-        # c3 aggregates phase 10's proof; the same proof and vote hash pad
-        # the other slots (the circuit is the one the canonical dummy
-        # gives), and the latch mask marks one real vote
+        # c3 aggregates phase 10's proof (the same proof and vote hash
+        # would pad any other slot)
         vote = (c2_proof, c2_cs.public_values()[0])
         c2_vk = c2_rt.vk
         del c2_rt, c2_cs
+        lap("[11b]", t_run)
         c3 = c3_phase(stages, c2_vk, vote, vote, root)[0]
+        say(f"[11] summary {json.dumps(c3)}")
+        lap("[12]", t_run)
+        c4 = c4_phase(stages, root)
     finally:
         shutil.rmtree(root)
-    say(f"[11] summary {json.dumps(c3)}")
+    say(f"[12] summary {json.dumps(c4)}")
 
     say(f"whole run: {time.perf_counter() - t_run:.1f} s")
     # L = 64: B1-B5 per c3 prove, B6 (Fp) per c3 setup

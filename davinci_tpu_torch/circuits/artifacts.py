@@ -21,12 +21,12 @@ from davinci_tpu_torch import log
 from davinci_tpu_torch.groth16 import Groth16
 from davinci_tpu_torch.groth16.serialize import (
     cs_structure_hash,
-    pk_from_bytes,
-    pk_to_bytes,
+    read_pk,
     solved_from_bytes,
     solved_to_bytes,
     vk_from_bytes,
     vk_to_bytes,
+    write_pk,
 )
 
 
@@ -147,7 +147,8 @@ class ArtifactStore:
             if meta.get("structure_hash") == shash or not check_hash:
                 try:
                     with log.info_time("artifacts.load", circuit=circuit_id):
-                        pk = pk_from_bytes(pk_p.read_bytes(), g1spec, g2spec)
+                        with pk_p.open("rb") as f:
+                            pk = read_pk(f, g1spec, g2spec)
                         vk = vk_from_bytes(vk_p.read_bytes(), g1spec, g2spec)
                     return CircuitRuntime(
                         circuit_id, curve_name, pk, vk, shash, g16
@@ -167,7 +168,8 @@ class ArtifactStore:
         ):
             pk, vk = g16.setup(cs, rng=rng)
         d.mkdir(parents=True, exist_ok=True)
-        pk_p.write_bytes(pk_to_bytes(pk, g1spec, g2spec))
+        with pk_p.open("wb") as f:
+            write_pk(f, pk, g1spec, g2spec)
         vk_p.write_bytes(vk_to_bytes(vk, g1spec, g2spec))
         meta_p.write_text(
             json.dumps(

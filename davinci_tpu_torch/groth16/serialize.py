@@ -137,6 +137,14 @@ def _read_points(buf, spec) -> list:
 
 def pk_to_bytes(pk, g1spec, g2spec) -> bytes:
     buf = io.BytesIO()
+    write_pk(buf, pk, g1spec, g2spec)
+    return buf.getvalue()
+
+
+def write_pk(buf, pk, g1spec, g2spec):
+    """Write `pk` in `pk_to_bytes`'s format to `buf`, an open binary file,
+    one section at a time: a key of tens of gigabytes goes to disk with
+    no more than one base array's bytes held beside it."""
     buf.write(_MAGIC)
     buf.write(b"PK")
     buf.write(pk.domain_log.to_bytes(4, "big"))
@@ -157,13 +165,17 @@ def pk_to_bytes(pk, g1spec, g2spec) -> bytes:
         buf,
         None if pk.k_priv_indices is None else list(pk.k_priv_indices),
     )
-    return buf.getvalue()
 
 
 def pk_from_bytes(data: bytes, g1spec, g2spec):
+    return read_pk(io.BytesIO(data), g1spec, g2spec)
+
+
+def read_pk(buf, g1spec, g2spec):
+    """The proving key `write_pk` wrote, read from `buf`, an open binary
+    file, one section at a time."""
     from davinci_tpu_torch.groth16.core import ProvingKey
 
-    buf = io.BytesIO(data)
     assert buf.read(len(_MAGIC)) == _MAGIC, "bad artifact magic"
     assert buf.read(2) == b"PK", "not a proving key"
     domain_log = int.from_bytes(buf.read(4), "big")

@@ -1,2 +1,12 @@
-"""The sequencer's state layer: so far its blob codec (`blobcodec`).
-Counterpart of `davinci_tpu/state/`."""
+from davinci_tpu_torch.state.smt import SMT, SMTProof, SMTTransition
+from davinci_tpu_torch.state.state import BatchResult, State, Vote, ballot_index_key
+
+__all__ = [
+    "SMT",
+    "SMTProof",
+    "SMTTransition",
+    "BatchResult",
+    "State",
+    "Vote",
+    "ballot_index_key",
+]
