@@ -102,73 +102,48 @@ Phases, one line of output each (any failure raises and exits non-zero):
      BLS12-377's Fr: every call must be equal), with the kernel's and the
      plain version's times on the largest call; [9f] a plain BLS12-381 Groth16 at a 2^12 domain, set
      up, proved and verified true and false on the card.
-  10. The production vote verifier (c2, BLS12-377, the proof the sequencer
-     makes for every vote) from phase 5's c1 proof: [10a] its witness
-     (BN254 inner pairing with c1's verifying key, secp256k1 signed by
-     `ethereum.sign`, the lookup tier), c1's key and proof written to
-     build/c1_vector.json; [10b] one host build, with its constraint and
-     variable counts (the reference's full-size build has 3,437,706
-     constraints; another count is printed as a finding); [10c]
-     `ArtifactStore.load_or_setup` on the card (a store under build/,
-     removed at the end), with the sizes of pk.bin and vk.bin; [10d] one
-     steady `prove_committed_reuse`, verified and refused with a tampered
-     public value, with its stage times (`groth16.refinalize`, the
-     challenge's wires re-solved on the host, among them), the launches of
-     B1-B5, B7 and B5's G2 build at L = 32 and of B6 at L = 22 (each must
-     be launched) and peak device memory; the prove keeps the first and
-     the largest call of each kernel wrapper, and each is made again
-     against its plain version (B1-B5, B5's G2 build and B7 at L = 32, B6
-     on BLS12-377's Fr, at c2's own shapes: every call must be equal),
-     with the kernel's and the plain version's times on the largest.
-  11. BW6-761 and the aggregator (c3, the per-batch proof): [11a] B1-B6
-     at L = 64 against their plain versions: B1 on both groups (G1,
-     b = -1, and G2, b = 4, both over the 761-bit Fp) on planes and rows
-     with edge cases and points rescaled near p - 1 (timed at 22, 45,056
-     and 2^16 adds), B6 on BW6-761's Fp (2^16 products, 0, 1, p - 1, raw
-     values up to R - 1, broadcast, repeating and offset operands), and a
-     4,096-point G1 and G2 MSM through `msm` (the scan path for both)
-     against host oracles, whose B1 planes and B2-B5 calls are held
-     against their plain versions (B4 against its split order; B2 on
-     G1's 3b = -3) with event, device, plain and bound times and ptxas's
-     registers and spills; then, inside phase 10's store: [11b] c3 at one
-     slot (the sequencer's default is 4, `provers.py:59`: cut to keep the
-     run inside its time), production shape (`inner_committed`), from
-     phase 10's c2 key, with phase 10's proof and vote hash in it, its
-     constraint and variable counts; [11c]
-     `ArtifactStore.load_or_setup(..., "bw6_761", cs)` on the card, with
-     the sizes of pk.bin and vk.bin, the domain and the setup's launches
-     (B1 and B6 at L = 64 must be launched); [11d] `prove_and_verify`,
-     and `verify` false with the batch hash + 1, with the stage times
-     (witness, quotient NTT, MSMs, the rest), peak device memory and the
-     launches of B1-B5 at L = 64 and B6 at L = 32 (each must be
-     launched); the prove keeps the first and the largest call of each
-     kernel wrapper and replays them against their plain versions (every
-     call equal).
-  12. The state transition (c4, BN254, the per-batch proof that goes on
-     chain with the blob) and the results verifier (c5, BN254), inside
-     phase 10's store: [12a] c4's witness at 4 votes (the sequencer's
-     default batch) and the production tiers (64 levels, a 20-level
-     census, the blob bound on the full 4,096-cell domain, lookups), as
-     `sequencer/pipeline.py:375-420` makes it, from the election of the
-     reference's scripts/fullsize_c4.py (seeded votes, the LeanIMT
-     census, the 64-level `prepare_votes_batch`; z and y from
-     `pack_batch_blob(..., with_kzg=True)` on the card, checked against
-     the host's barycentric evaluation), each step's seconds; one host
-     build, with its constraint and variable counts, its largest scopes
-     and the host's resident set; [12b] `ArtifactStore.load_or_setup` on
-     the card (pk.bin written a section at a time), with the sizes of
-     pk.bin and vk.bin and the setup's launches; [12c]
-     `prove_and_verify_committed` (the built system re-solved in place as
-     its builder, `resolve`), then one steady `prove_committed_reuse`,
-     each refused by `verify_committed` with root_after + 1, with stage
-     times, the launches of the L = 22 kernels (each must be launched)
-     and peak device memory; the steady prove keeps the first and the
-     largest call of each kernel wrapper and replays them against their
-     plain versions; [12d] c5 at full size (64 levels, 8 fields) on the
-     state the batch left: `results_witness_from_state` with the
-     election's key, the build, `load_or_setup("results-v1", "bn254",
-     cs)` and `prove_and_verify`, refused with results[0] + 1.  A line before each phase gives the
-     seconds since the run began.
+  11a. B1-B6 at L = 64 (BW6-761) against their plain versions: B1 on
+     both groups (G1, b = -1, and G2, b = 4, both over the 761-bit Fp) on
+     planes and rows with edge cases and points rescaled near p - 1
+     (timed at 22, 45,056 and 2^16 adds), B6 on BW6-761's Fp (2^16
+     products, 0, 1, p - 1, raw values up to R - 1, broadcast, repeating
+     and offset operands), and a 4,096-point G1 and G2 MSM through `msm`
+     (the scan path for both) against host oracles, whose B1 planes and
+     B2-B5 calls are held against their plain versions (B4 against its
+     split order; B2 on G1's 3b = -3) with event, device, plain and bound
+     times and ptxas's registers and spills.
+  13. The sequencer (`sequencer/pipeline.py`) with its production provers
+     (`sequencer/provers.py`'s `ProtocolProvers` at "prove" for c2, c3
+     and c4), one election on the card: c1's ballot (phase 5), c2's
+     client material of phase 10's construction [10a] (BN254 inner
+     pairing with c1's key, secp256k1 signed by `ethereum.sign`, the
+     lookup tier; c1's key and proof written to build/c1_vector.json), a
+     census of 8 voters whose compressed proof the sequencer decompresses,
+     c3 at one slot, c4 at `votes_per_batch` = 2 slots (the production
+     tiers: 64 levels, a 20-level census, the blob on the full 4,096-cell
+     domain with its KZG, lookups) and c5 at full size, every key through
+     one store under build/ (removed at the end; `DAVINCI_ARTIFACTS_DIR`
+     too, the finalizer's store).  One line a tick (`tick_ballot`,
+     `tick_aggregate`, `tick_transition`, `tick_onchain`, then
+     `tick_finalizer(prove_real=True)` once the chain ends the process):
+     its seconds, the kernels it launched (each of its circuits' kernels
+     must be), its stage times, peak device memory and the constraints of
+     what it built.  Between the ticks, on the runtimes and the systems
+     the pipeline made: `verify_vote` true for c2's proof and false for
+     its vote hash + 1, and one steady c2 `prove_committed_reuse`,
+     verified and refused with a tampered public value, the first and the
+     largest call of each kernel wrapper replayed against its plain
+     version [10d]; c3's prove's kept kernel calls (recorded during the
+     tick) replayed, its proof refused with the batch hash + 1 [11d]; c4's
+     proof refused with root_after + 1, its blob's y checked against the
+     host's barycentric evaluation at z, one steady reuse prove refused
+     and replayed [12c]; the chain's root is the state's, the vote
+     SETTLED, the results the ballot's tally, c5's proof refused with
+     results[0] + 1 [12d].  The reference's canonical dummy vote passes
+     no ballot proof, which the production c2 cannot build, so the provers
+     are given this ballot's c2 proof as their dummy before
+     `tick_aggregate`.  A line before each phase gives the seconds since
+     the run began.
 
 The line before the last is a JSON object with one entry per kernel (B8:
 per variant) and limb count, with its registers and spills from ptxas;
@@ -196,8 +171,10 @@ in the same way for another checkout.
 
     python3 chip_smoke.py --c2
 
-runs phases 5 and 10, then the sequencer's per-vote route at full size
-(`sequencer/provers.py`'s `_c2_prove`): `prove_and_verify_committed`
+runs phase 5 and phase 10, c2's flow without the sequencer: its witness
+[10a], one host build [10b], setup through a store [10c] and one steady
+reuse prove with its kernel calls replayed [10d]; then the sequencer's
+per-vote route at full size (`sequencer/provers.py`'s `_c2_prove`): `prove_and_verify_committed`
 (one build more, re-solved through the `_refinalize` hook), two more
 steady reuse proves, and a second store on the same directory that must
 load with no setup, then prove and verify, each with 10d's record (the
@@ -205,7 +182,7 @@ replay against the plain versions is 10d's alone).
 
     python3 chip_smoke.py --c3
 
-runs phases 5 and 10 (phase 10's prove without the replay), then the
+runs phases 5 and 10 (`--c2`'s; the prove without the replay), then the
 aggregator at full size, `VOTES_PER_BATCH` = 60 slots: the canonical
 dummy vote (`sequencer/provers.py:162-190`: a c2 proof, under c2's key,
 of the fixed dummy witness; the production c2 verifies an inner proof,
@@ -220,9 +197,10 @@ replay).
 
     python3 chip_smoke.py --c4 [N]
 
-runs phase 12's c4 alone at N votes (default 60, the production batch:
-its count must be the reference's 14,993,781) with `--c3`'s flow: the
-witness and the build [12a], setup on the card in memory [12b],
+runs c4 alone at N votes (default 60, the production batch: its count
+must be the reference's 14,993,781) with `--c3`'s flow: the witness,
+made by the port's `Sequencer` from a seeded election of N ballots, and
+the build [12a], setup on the card in memory [12b],
 `prove_and_verify_committed` [12c] and one steady reuse prove [12e],
 each verified and refused with root_after + 1, then the key written
 through the store a section at a time and a second store on the same
@@ -1056,7 +1034,9 @@ def replay_phase(cap, tag):
 
 def ballot_circuit():
     """The full-size ballot-proof circuit (c1) with the inputs of the
-    reference's benchmark, built by the package's host copy."""
+    reference's benchmark, built by the package's host copy.  Returns (the
+    system, its public inputs hash, the build's seconds, the ballot's
+    witness, the election's private key)."""
     from davinci_tpu_torch.ballotmode import BallotMode
     from davinci_tpu_torch.circuits.ballotproof import (
         build_ballot_proof_circuit,
@@ -1066,7 +1046,7 @@ def ballot_circuit():
 
     t0 = time.perf_counter()
     rng = random.Random(0xF3)
-    pub, _ = generate_key(rng)
+    pub, priv = generate_key(rng)
     bw = make_ballot(
         12345, BallotMode(), (pub.x, pub.y), rng.randrange(2**160),
         rng.randrange(1, 2**200), [1, 0, 0, 0, 0, 0, 0, 0],
@@ -1076,7 +1056,7 @@ def ballot_circuit():
     check(len(cs.constraints) == 99946, "c1 constraint count")
     say(f"[5] c1 built: {len(cs.constraints)} constraints, "
         f"{cs.num_variables} variables in {build_s:.3f} s")
-    return cs, [bw.inputs_hash()], build_s, bw.vote_id
+    return cs, [bw.inputs_hash()], build_s, bw, priv
 
 
 def mont_mul_phase(dev, n=1 << 16, names=B6_FIELDS, tag="[6]"):
@@ -2051,18 +2031,6 @@ def prove_verify(rt, cs, stages, tag, replay=False, what="c3",
     return rec
 
 
-def c3_phase(stages, c2_vk, vote, dummy, root, n_votes=C3_SLOTS,
-             replay=True):
-    """Phase 11b-11d: c3 built [11b], set up through the store under
-    `root` [11c], proved and verified [11d].  Returns (results, the
-    runtime, the built system, its parameters)."""
-    params, cs, out = c3_build(c2_vk, vote, dummy, n_votes, "[11b]")
-    rt, setup = store_setup(params.circuit_id(), cs, root, stages, "[11c]")
-    out.update(setup)
-    out["prove"] = [prove_verify(rt, cs, stages, "[11d]", replay=replay)]
-    return out, rt, cs, params
-
-
 def c3_dummy(c2_rt, c2_params, c1, tag):
     """The canonical dummy vote (`sequencer/provers.py:162-190`): a c2
     proof, under c2's key, of the fixed dummy witness (process 0, signing
@@ -2093,9 +2061,11 @@ def c3_dummy(c2_rt, c2_params, c1, tag):
 
 C4_SEED = 0xC460  # the election of the reference's scripts/fullsize_c4.py
 C4_PROCESS_ID = 424260
-C4_VOTES = 4  # the sequencer's default batch (provers.py:59), phase 12's
 C4_TIERS = {"n_levels": 64, "census_levels": 20, "include_blob": True,
             "blob_domain_bits": 12, "use_lookup": True}  # the production's
+# c4's overrides for `ProtocolProvers`: the sequencer passes n_votes,
+# include_census and census_levels itself (provers.py:263-268)
+C4_OVERRIDES = {k: v for k, v in C4_TIERS.items() if k != "census_levels"}
 # the reference's builds at these tiers (BENCH_NOTES.md:17, 106-108)
 C4_CONSTRAINTS = {2: 1563441, 60: 14993781}
 # the kernels of a BN254 prove, committed or not: c1's (B1-B7 and B5's G2
@@ -2109,15 +2079,16 @@ C5_ID = "results-v1"  # the finalizer's (sequencer/pipeline.py:478)
 C5_MAX_MESSAGE = 1 << 16  # the decryption's search bound: results <= votes
 
 
-def c4_inputs(n_votes, tag):
+def sequencer_c4_witness(n_votes, tag):
     """[12a] c4's parameters and witness at `n_votes` votes and the
-    production tiers, as the sequencer makes them
-    (`sequencer/pipeline.py:375-420`), from the election of the
-    reference's scripts/fullsize_c4.py:58-110 (one seeded
-    `random.Random`): encrypted and re-encrypted votes, a 20-level LeanIMT
-    census, the 64-level `prepare_votes_batch`, and z and y from the
-    port's `pack_batch_blob(..., with_kzg=True)` (phase 7's blob path on
-    the card), checked against the host's barycentric evaluation.
+    production tiers, made by the port's `Sequencer` itself
+    (`sequencer/pipeline.py:298-420`) with provers that keep c4's witness
+    instead of proving it: the election of the reference's
+    scripts/fullsize_c4.py:58-110 (one seeded `random.Random`: the key,
+    the ballots, a 20-level LeanIMT census whose compressed proofs the
+    sequencer decompresses), `tick_ballot`, `tick_aggregate` and
+    `tick_transition` (re-encryption, the 64-level `prepare_votes_batch`,
+    z and y from `pack_batch_blob(..., with_kzg=True)` on the card).
     Returns (params, witness, the state after the batch, the election's
     private key, the seconds of each step)."""
     import torch
@@ -2125,81 +2096,94 @@ def c4_inputs(n_votes, tag):
     from davinci_tpu_torch import spec as protocol
     from davinci_tpu_torch.ballotmode import BallotMode
     from davinci_tpu_torch.census import CensusDB
-    from davinci_tpu_torch.circuits.blob_gadget import barycentric_eval_host
     from davinci_tpu_torch.circuits.statetransition import (
         StateTransitionParams,
-        StateTransitionWitness,
-        _blob_domain,
     )
     from davinci_tpu_torch.elgamal import Ballot, generate_key
-    from davinci_tpu_torch.state import State, Vote, ballot_index_key
-    from davinci_tpu_torch.state.blobcodec import pack_batch_blob
+    from davinci_tpu_torch.sequencer import (
+        DevStubProvers,
+        InMemoryChain,
+        Sequencer,
+    )
+    from davinci_tpu_torch.sequencer.pipeline import ProcessInfo
+    from davinci_tpu_torch.storage import MemoryKV, Storage
+
+    class WitnessProvers(DevStubProvers):
+        c4_overrides = C4_OVERRIDES  # the blob's z and y with its KZG
+
+        def prove_state_transition(self, batch_summary):
+            self.summary = batch_summary
+            return super().prove_state_transition(batch_summary)
 
     took = {}
     t0 = time.perf_counter()
     rng = random.Random(C4_SEED)
     pub, priv = generate_key(rng)
-    bm = BallotMode()
-    st = State(C4_PROCESS_ID)
-    st.initialize(1, bm.pack(), (pub.x, pub.y))
-    votes, ks = [], []
-    for i in range(n_votes):
-        choice = [0] * protocol.FIELDS_PER_BALLOT
-        choice[i % protocol.FIELDS_PER_BALLOT] = 1
-        b = Ballot.encrypt(choice, pub, rng.randrange(1, 2**200))
-        k_re = rng.randrange(1, 2**200)
-        reenc, _ = b.reencrypt(pub, k_re)
-        votes.append(Vote(address=rng.randrange(2**160),
-                          ballot_index=ballot_index_key(i),
-                          vote_id=protocol.VOTE_ID_MIN + rng.randrange(2**40),
-                          ballot=b, reencrypted_ballot=reenc, weight=1))
-        ks.append(k_re)
-    took["votes_s"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
+    bm = BallotMode().pack()
+    voters = [rng.randrange(2**160) for _ in range(n_votes)]
     cdb = CensusDB()
     cdb.new("c")
-    for v in votes:
-        cdb.insert("c", v.address, v.weight)
+    for address in voters:
+        cdb.insert("c", address, 1)
     census_root = cdb.publish("c")
-    tree = cdb.by_id["c"].tree
-    cproofs = []
-    for i in range(n_votes):
-        _, sibs, acts, bits = tree.prove_circuit(i, C4_TIERS["census_levels"])
-        cproofs.append({"kind": "merkle", "siblings": sibs, "actives": acts,
-                        "index_bits": bits, "index": i})
-    took["census_s"] = time.perf_counter() - t0
-
+    info = ProcessInfo(
+        process_id=C4_PROCESS_ID, census_origin=1, ballot_mode=bm,
+        encryption_key=(pub.x, pub.y),
+        state_root=protocol.state_root(C4_PROCESS_ID, 1, pub.x, pub.y, bm),
+        census_root=census_root)
+    chain = InMemoryChain()
+    chain.create_process(info)
+    provers = WitnessProvers()
+    seq = Sequencer(Storage(MemoryKV()), chain, provers=provers,
+                    batch_time_window=0.0, votes_per_batch=n_votes,
+                    census_levels=C4_TIERS["census_levels"])
+    seq.register_process(info, priv_key=priv)
+    for i, address in enumerate(voters):
+        choice = [0] * protocol.FIELDS_PER_BALLOT
+        choice[i % protocol.FIELDS_PER_BALLOT] = 1
+        seq.submit_ballot(
+            C4_PROCESS_ID, address,
+            Ballot.encrypt(choice, pub, rng.randrange(1, 2**200)),
+            protocol.VOTE_ID_MIN + rng.randrange(2**40),
+            client={"inputs_hash": hex(rng.randrange(1 << 250))},
+            census_proof=cdb.proof_by_root(census_root, address))
+    took["ballots_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    batch = st.prepare_votes_batch(votes)
-    took["prepare_votes_batch_s"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    blob = pack_batch_blob(C4_PROCESS_ID, batch, with_kzg=True)
+    seq.tick_ballot(max_items=n_votes)
+    seq.tick_aggregate()
+    seq.tick_transition(rng=rng)
     torch.cuda.synchronize()
-    took["pack_batch_blob_s"] = time.perf_counter() - t0
-    cells = list(batch.new_results.coords()) + [len(batch.votes)]
+    took["ticks_s"] = time.perf_counter() - t0
+    summary = provers.summary
+    w = summary["witness"]
+    check(len(w.batch.votes) == n_votes and w.census_proofs is not None,
+          "the sequencer batched every ballot with its census proof")
+    params = StateTransitionParams(
+        n_votes=summary["n_votes"], include_census=True,
+        census_levels=summary["census_levels"], **C4_OVERRIDES)
+    check(blob_y_is_the_host_evaluation(w, params.blob_domain_bits),
+          "the blob's y is the host's barycentric evaluation at its z")
+    say(f"{tag} c4 witness, {n_votes} votes, made by the sequencer: z "
+        f"{w.blob_z:#x}, y {w.blob_y:#x}, seconds {json.dumps(took)}")
+    return params, w, seq.states[C4_PROCESS_ID], priv, took
+
+
+def blob_y_is_the_host_evaluation(w, domain_bits):
+    """Whether c4's witness holds the blob's evaluation at z: the batch's
+    cells in `pack_batch_blob`'s order (`state/blobcodec.py:29-34`),
+    evaluated on the host
+    (`barycentric_eval_host`) over the blob's domain."""
+    from davinci_tpu_torch.circuits.blob_gadget import barycentric_eval_host
+    from davinci_tpu_torch.circuits.statetransition import _blob_domain
+
+    batch = w.batch
+    cells = list(batch.new_results.coords()) + [batch.voters_count]
     for v in batch.votes:
         cells += [v.vote_id, v.address, v.ballot_index, v.weight]
         cells += v.reencrypted_ballot.coords()
-    dom = _blob_domain(C4_TIERS["blob_domain_bits"])
-    t0 = time.perf_counter()
-    check(blob["n_cells"] == len(cells)
-          and blob["y"] == barycentric_eval_host(
-              dom, cells + [0] * (len(dom) - len(cells)), blob["z"]),
-          "the blob's y is the host's barycentric evaluation at its z")
-    took["barycentric_host_s"] = time.perf_counter() - t0
-
-    params = StateTransitionParams(n_votes=n_votes, **C4_TIERS)
-    w = StateTransitionWitness(
-        batch=batch, process_id=C4_PROCESS_ID, ballot_mode_packed=bm.pack(),
-        encryption_key=(pub.x, pub.y), census_origin=1, reenc_k=ks,
-        inputs_hashes=[rng.randrange(1 << 250) for _ in votes],
-        census_root=census_root, census_proofs=cproofs,
-        blob_z=blob["z"], blob_y=blob["y"])
-    say(f"{tag} c4 witness, {n_votes} votes: {blob['n_cells']} blob cells, "
-        f"z {blob['z']:#x}, y {blob['y']:#x}, seconds {json.dumps(took)}")
-    return params, w, st, priv, took
+    dom = _blob_domain(domain_bits)
+    return w.blob_y == barycentric_eval_host(
+        dom, cells + [0] * (len(dom) - len(cells)), w.blob_z)
 
 
 def c4_build(params, w, tag):
@@ -2292,55 +2276,353 @@ def c4_first_prove(rt, cs, stages, tag):
     return rec, proof
 
 
-def c5_phase(st, priv, root, stages, tag):
-    """[12d] the results verifier (c5) at full size (64 levels, 8 fields)
-    on the state [12a]'s batch left, as the finalizer proves it
-    (`sequencer/pipeline.py:456-490`): `results_witness_from_state` with
-    the election's private key, the build, `load_or_setup("results-v1",
-    "bn254", cs)` through the store under `root` and `prove_and_verify`,
-    refused with results[0] + 1 (no replay: c5's kernel calls are c4's
-    wrappers at c4's largest sizes, which [12c] replays)."""
-    from davinci_tpu_torch.circuits.results import (
-        build_results_circuit,
-        results_witness_from_state,
+# phase 13: c4's slots, the sequencer's `votes_per_batch`, which c4's
+# n_votes follows (pipeline.py:412) whatever the ballots in the batch
+SEQ_VOTES = 2
+# the kernels each tick of phase 13 must launch: c2's prove (its setup
+# adds B6 at L = 32), c3's prove and setup, c4's and c5's BN254 proves
+# (the transition's blob adds its KZG MSM on the L = 32 G1 kernels)
+TICK_KERNELS = {
+    "tick_ballot": COMMITTED_KERNELS,
+    "tick_aggregate": C3_PROVE_KERNELS + C3_SETUP_KERNELS,
+    "tick_transition": BN254_KERNELS + ("point_add_g1_l32",
+                                        "bucket_scan_g1_l32", "mont_mul_l32"),
+    "tick_onchain": (),
+    "tick_finalizer": BN254_KERNELS,
+}
+
+
+class KeptBuilds:
+    """While installed, the circuit builders the sequencer calls
+    (`sequencer/provers.py`'s module names, and `circuits/results.py`'s,
+    which the finalizer imports when it runs) keep what they build:
+    `built[name]` lists (witness, system, seconds).  A second call for the
+    same witness gets that system back, re-solved in place for its
+    (challenge, blind) as `resolve` does, where the provers' committed
+    proves build it again (`provers.py:120-130, 278-285`): the host holds
+    one system, and the prove is the one a second build would give."""
+
+    NAMES = ("build_vote_verifier_circuit", "build_aggregator_circuit",
+             "build_state_transition_circuit", "build_results_circuit")
+
+    def __init__(self):
+        self.built = {}
+
+    @staticmethod
+    def _module(name):
+        from davinci_tpu_torch.circuits import results
+        from davinci_tpu_torch.sequencer import provers
+
+        return results if name == "build_results_circuit" else provers
+
+    def last(self, name):
+        """(witness, system) of `name`'s last build."""
+        return self.built[name][-1][:2]
+
+    def __enter__(self):
+        self.saved = {name: getattr(self._module(name), name)
+                      for name in self.NAMES}
+        for name, fn in self.saved.items():
+            def kept(*args, _name=name, _fn=fn, **kw):
+                w = args[0] if _name == "build_results_circuit" else args[1]
+                made = self.built.setdefault(_name, [])
+                for w0, cs, _ in made:
+                    if w0 is w:
+                        return resolve(cs)(**kw)
+                t0 = time.perf_counter()
+                cs = _fn(*args, **kw)
+                made.append((w, cs, time.perf_counter() - t0))
+                return cs
+            setattr(self._module(name), name, kept)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self._module(name), name, fn)
+
+
+class RuntimeProves:
+    """While installed, every `prove_and_verify` and
+    `prove_and_verify_committed` of a `CircuitRuntime` is recorded:
+    `proves[circuit_id]` = (the runtime, the proof, seconds).  A circuit
+    whose id starts with a key of `capture` proves inside
+    `Capture(capture[key], largest=True)`, kept in `captures[circuit_id]`
+    for `replay_phase`."""
+
+    METHODS = ("prove_and_verify", "prove_and_verify_committed")
+
+    def __init__(self, capture=None):
+        self.capture = capture or {}
+        self.proves, self.captures = {}, {}
+
+    def __enter__(self):
+        import contextlib
+
+        import torch
+
+        from davinci_tpu_torch.circuits.artifacts import CircuitRuntime
+
+        self.saved = {name: getattr(CircuitRuntime, name)
+                      for name in self.METHODS}
+        for name, fn in self.saved.items():
+            def recorded(rt, *args, _fn=fn, **kw):
+                cap = next((Capture(names, largest=True)
+                            for prefix, names in self.capture.items()
+                            if rt.circuit_id.startswith(prefix)), None)
+                t0 = time.perf_counter()
+                with cap or contextlib.nullcontext():
+                    proof = _fn(rt, *args, **kw)
+                torch.cuda.synchronize()
+                self.proves[rt.circuit_id] = (rt, proof,
+                                              time.perf_counter() - t0)
+                if cap is not None:
+                    self.captures[rt.circuit_id] = cap
+                return proof
+            setattr(CircuitRuntime, name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        from davinci_tpu_torch.circuits.artifacts import CircuitRuntime
+
+        for name, fn in self.saved.items():
+            setattr(CircuitRuntime, name, fn)
+
+
+def tick(seq, name, stages, kept, **kw):
+    """One tick of the sequencer, `name`, driven with every launch count
+    set to 0 just before it and read just after: its seconds, the kernels
+    it launched (each of `TICK_KERNELS[name]` must be), its stage times,
+    peak device memory, and the constraints of each circuit it built."""
+    import torch
+
+    from davinci_tpu_torch import kernels as K
+
+    builds = {n: len(made) for n, made in kept.built.items()}
+    stages.took.clear()
+    for k in K.KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    getattr(seq, name)(**kw)
+    torch.cuda.synchronize()
+    rec = {"s": time.perf_counter() - t0,
+           "launches": {k.name: k.launches for k in K.KERNELS if k.launches},
+           "stages_s": dict(stages.took),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "built": {n.removeprefix("build_").removesuffix("_circuit"): {
+               "constraints": len(cs.constraints),
+               "variables": cs.num_variables, "build_s": s}
+               for n, made in kept.built.items()
+               for _, cs, s in made[builds.get(n, 0):]}}
+    say(f"[13] {name}: {json.dumps(rec)}")
+    for kernel in TICK_KERNELS[name]:
+        check(rec["launches"].get(kernel, 0) > 0,
+              f"{kernel} was not launched by {name}")
+    return rec
+
+
+def election_inputs(c1, params, w):
+    """Phase 13's process and ballot: c1's election (its key, ballot mode
+    and encrypted ballot, phase 5), a census of eight voters with c2's
+    signer among them (a LeanIMT, compressed proofs), the wire ballot
+    with c2's client material: c1's proof, its inputs hash, and the
+    secp256k1 signature and key of `c2_inputs`.  Returns (the process,
+    the private key, the `submit_ballot` arguments)."""
+    from davinci_tpu_torch import spec as protocol
+    from davinci_tpu_torch.census import CensusDB
+    from davinci_tpu_torch.groth16.serialize import proof_to_dict
+    from davinci_tpu_torch.sequencer.pipeline import ProcessInfo
+
+    bw = c1["ballot"]
+    kx, ky = bw.pubkey
+    bm = bw.ballot_mode.pack()
+    rng = random.Random(SEED + 13)
+    voters = [rng.randrange(2**160) for _ in range(7)]
+    voters.insert(3, w.address)
+    cdb = CensusDB()
+    cdb.new("c")
+    for address in voters:
+        cdb.insert("c", address, 1)
+    census_root = cdb.publish("c")
+    info = ProcessInfo(
+        process_id=w.process_id, census_origin=1, ballot_mode=bm,
+        encryption_key=(kx, ky),
+        state_root=protocol.state_root(w.process_id, 1, kx, ky, bm),
+        census_root=census_root)
+    ballot = {
+        "pid": w.process_id, "address": w.address, "ballot": bw.ballot,
+        "vote_id": w.vote_id, "weight": 1,
+        "client": {"ballot_proof": proof_to_dict(c1["proof"]),
+                   "inputs_hash": hex(w.inputs_hash),
+                   "sig_r": hex(w.sig_r), "sig_s": hex(w.sig_s),
+                   "pubkey": [w.pubkey.x.v, w.pubkey.y.v]},
+        "census_proof": cdb.proof_by_root(census_root, w.address)}
+    check(bw.process_id == w.process_id, "c1 and c2 are of one process")
+    return info, c1["priv"], ballot
+
+
+def sequencer_phase(stages, c1, root):
+    """Phase 13: one election through the port's `Sequencer` with the
+    production provers (`ProtocolProvers` at "prove" for c2, c3 and c4;
+    c2's parameters of phase 10, c3 at `C3_SLOTS` slots, c4 at
+    `SEQ_VOTES` slots and the production tiers), its artifacts through a
+    store under `root` (`DAVINCI_ARTIFACTS_DIR` too, the finalizer's
+    `default_store()`): one ballot, then `tick_ballot`, `tick_aggregate`,
+    `tick_transition`, `tick_onchain`, `end_process` and
+    `tick_finalizer(prove_real=True)`, a line each (`tick`).  Between
+    the ticks, on the runtimes and systems the pipeline made, what phases
+    10-12 measure: c2's steady reuse prove with its kernel calls replayed
+    [10d]; c3's prove's kernel calls (recorded during the tick) replayed
+    and its proof refused with the batch hash + 1 [11d]; c4's proof
+    refused with root_after + 1, then one steady reuse prove, refused
+    and replayed [12c]; c5's proof refused with results[0] + 1 [12d].
+    Returns its results, with the launches of the ticks summed."""
+    import os
+
+    from davinci_tpu_torch.circuits import artifacts
+    from davinci_tpu_torch.circuits.statetransition import (
+        StateTransitionParams,
     )
+    from davinci_tpu_torch.circuits.voteverifier import witness_vote_hash
+    from davinci_tpu_torch.groth16.serialize import proof_from_dict
+    from davinci_tpu_torch.sequencer import InMemoryChain, Sequencer
+    from davinci_tpu_torch.sequencer.provers import (
+        ProtocolProvers,
+        ProverModes,
+    )
+    from davinci_tpu_torch.storage import MemoryKV, Storage, VoteIDStatus
 
-    t0 = time.perf_counter()
-    w = results_witness_from_state(st, priv, C5_MAX_MESSAGE,
-                                   random.Random(SEED))
-    out = {"witness_s": time.perf_counter() - t0, "results": w.results}
-    t0 = time.perf_counter()
-    cs = build_results_circuit(w)
-    out.update(build_s=time.perf_counter() - t0,
-               constraints=len(cs.constraints), variables=cs.num_variables)
-    check(cs.public_values() == [st.root] + w.results,
-          "c5's publics are the state root and the results")
-    say(f"{tag} c5 built: {json.dumps(out)}")
-    rt, out["setup"] = store_setup(C5_ID, cs, root, stages, tag,
-                                   curve="bn254", what="c5",
-                                   setup_kernels=BN254_SETUP_KERNELS)
-    out["prove"] = prove_verify(rt, cs, stages, tag, what="c5",
-                                kernels=BN254_KERNELS, tamper=1)
-    return out
+    os.environ["DAVINCI_ARTIFACTS_DIR"] = str(root)
+    params, w = c2_inputs(c1)
+    info, priv, ballot = election_inputs(c1, params, w)
+    provers = ProtocolProvers(
+        params, store=artifacts.ArtifactStore(root),
+        modes=ProverModes(vote="prove", aggregate="prove",
+                          state_transition="prove"),
+        n_votes_agg=C3_SLOTS, c4_overrides=C4_OVERRIDES)
+    chain = InMemoryChain()
+    chain.create_process(info)
+    seq = Sequencer(Storage(MemoryKV()), chain, provers=provers,
+                    batch_time_window=0.0, max_dl_bound=C5_MAX_MESSAGE,
+                    votes_per_batch=SEQ_VOTES,
+                    census_levels=C4_TIERS["census_levels"])
+    seq.register_process(info, priv_key=priv)
+    pid = info.process_id
+    seq.submit_ballot(**ballot)
+    out = {"votes_per_batch": SEQ_VOTES, "c3_slots": C3_SLOTS, "ticks": {}}
+    ticks = out["ticks"]
+    with KeptBuilds() as kept, RuntimeProves({"aggregator": C3_WRAPPERS}) \
+            as proves:
+        ticks["tick_ballot"] = tick(seq, "tick_ballot", stages, kept)
+        [(s, item)] = seq.storage.verified_ballots.next(1)
+        seq.storage.verified_ballots.release(s)
+        vp = item["vote_proof"]
+        check(vp["proven"] and int(vp["vote_hash"], 16)
+              == witness_vote_hash(params, w),
+              "c2's proof is proven, of the ballot's vote hash")
+        check(provers.verify_vote(vp), "verify_vote refuses c2's proof")
+        check(not provers.verify_vote(
+            {**vp, "vote_hash": hex(int(vp["vote_hash"], 16) + 1)}),
+            "verify_vote accepts c2's proof for the vote hash + 1")
+        c2_rt = provers._c2_rt
+        _, c2_cs = kept.last("build_vote_verifier_circuit")
+        out["c2_steady"], _ = reuse_prove(c2_rt, c2_cs, stages, "[10d]",
+                                          replay=True)
+        del c2_cs
+        kept.built.pop("build_vote_verifier_circuit")
+        # the reference's canonical dummy vote (`provers.py:162-187`)
+        # passes no ballot proof, which the production c2 cannot build:
+        # it is given the proof and vote hash of this ballot's c2 proof
+        provers._dummy = (proof_from_dict(vp["proof"], c2_rt.g16.g1,
+                                          c2_rt.g16.g2),
+                          int(vp["vote_hash"], 16))
 
+        ticks["tick_aggregate"] = tick(seq, "tick_aggregate", stages, kept)
+        [(s, agg)] = seq.storage.agg_batches.next(1)
+        seq.storage.agg_batches.release(s)
+        ap = agg["proof"]
+        [c3_id] = [cid for cid in proves.proves if cid.startswith("aggregator")]
+        c3_rt, c3_proof, _ = proves.proves[c3_id]
+        bh = int(ap["batch_hash"], 16)
+        check(ap["proven"] and ap["vote_hashes"] == [vp["vote_hash"]],
+              "c3's proof is proven, of the ballot's vote hash")
+        check(not c3_rt.verify(c3_proof, [bh + 1]),
+              "c3's proof verifies with the batch hash + 1")
+        out["c3_replay"] = replay_phase(proves.captures.pop(c3_id), "[11d]")
+        kept.built.pop("build_aggregator_circuit")
 
-def c4_phase(stages, root):
-    """Phase 12: c4 at `C4_VOTES` votes and the production tiers, its
-    witness [12a], one build [12a], setup through the store under `root`
-    [12b], `prove_and_verify_committed` and one steady reuse prove whose
-    kernel calls are replayed against their plain versions [12c]; then c5
-    at full size on the state the batch left [12d]."""
-    params, w, st, priv, out = c4_inputs(C4_VOTES, "[12a]")
-    cs, out["build"] = c4_build(params, w, "[12a]")
-    rt, out["setup"] = store_setup(
-        params.circuit_id(), cs, root, stages, "[12b]", curve="bn254",
-        what="c4", setup_kernels=BN254_SETUP_KERNELS)
-    out["first_prove"], _ = c4_first_prove(rt, cs, stages, "[12c]")
-    out["steady"], _ = reuse_prove(rt, cs, stages, "[12c]", replay=True,
-                                   what="c4", kernels=BN254_KERNELS,
-                                   tamper=1)
-    del rt, cs
-    out["c5"] = c5_phase(st, priv, root, stages, "[12d]")
+        ticks["tick_transition"] = tick(seq, "tick_transition", stages, kept)
+        [(s, tr)] = seq.storage.transition_batches.next(1)
+        seq.storage.transition_batches.release(s)
+        w4, c4_cs = kept.last("build_state_transition_circuit")
+        [c4_id] = [cid for cid in proves.proves
+                   if cid.startswith("statetransition")]
+        c4_rt, c4_proof, _ = proves.proves[c4_id]
+        public = c4_cs.public_values()
+        params4 = StateTransitionParams(
+            n_votes=SEQ_VOTES, include_census=True,
+            census_levels=C4_TIERS["census_levels"], **C4_OVERRIDES)
+        check(tr["proof"]["proven"]
+              and tr["proof"]["public"] == [hex(x) for x in public]
+              and public[:3] == [tr["root_before"], tr["root_after"],
+                                 w4.batch_hash(params4)],
+              "c4's proof is proven, of the batch's roots and batch hash")
+        check(len(w4.batch.votes) == 1 and w4.census_proofs is not None,
+              f"c4 holds one ballot in {SEQ_VOTES} slots, with its census")
+        # c4's structure follows the ballots in the batch as well as its
+        # slots (`statetransition.py:230-300`): one ballot in two slots
+        # builds fewer constraints than the reference's full batch
+        out["c4_constraints"] = {"built": len(c4_cs.constraints),
+                                 "full_batch": C4_CONSTRAINTS.get(SEQ_VOTES)}
+        # c3 hashes its n_votes_agg slots, c4 its votes_per_batch: the two
+        # agree only where those are equal (provers.py:59, pipeline.py:412)
+        out["batch_hash"] = {"c3": hex(bh), "c4": hex(public[2])}
+        check(blob_y_is_the_host_evaluation(w4,
+                                            C4_TIERS["blob_domain_bits"]),
+              "the blob's y is the host's barycentric evaluation at its z")
+        check(not c4_rt.verify_committed(c4_proof, bumped(public, 1)),
+              "c4's proof verifies with root_after + 1")
+        out["c4_steady"], _ = reuse_prove(
+            c4_rt, c4_cs, stages, "[12c]", replay=True, what="c4",
+            kernels=BN254_KERNELS, tamper=1)
+        del c4_cs, public
+        kept.built.pop("build_state_transition_circuit")
+
+        ticks["tick_onchain"] = tick(seq, "tick_onchain", stages, kept)
+        st = seq.states[pid]
+        check(chain.process(pid).state_root == st.root == tr["root_after"],
+              "the chain's root is the state's after the batch")
+        check(seq.storage.vote_status(pid, w.vote_id) == VoteIDStatus.SETTLED,
+              "the vote is settled")
+        chain.end_process(pid)
+        ticks["tick_finalizer"] = tick(seq, "tick_finalizer", stages, kept,
+                                       rng=random.Random(SEED),
+                                       prove_real=True)
+    results = chain.process(pid).results
+    tally = list(c1["ballot"].field_values)
+    check(results == tally, f"the results {results} are the tally {tally}")
+    check(artifacts.default_store().root == root,
+          "the finalizer's store is the run's")
+    [(s, fin)] = seq.storage.verified_results.next(1)
+    _, c5_cs = kept.last("build_results_circuit")
+    c5_rt, c5_proof, _ = proves.proves[C5_ID]
+    public = c5_cs.public_values()
+    check(fin["proof"]["proven"] and public == [st.root] + results
+          and fin["proof"]["public"] == [hex(x) for x in public],
+          "c5's proof is proven, of the state root and the results")
+    check(not c5_rt.verify(c5_proof, bumped(public, 1)),
+          "c5's proof verifies with results[0] + 1")
+    out["results"] = results
+    out["proves_s"] = {cid: s for cid, (_, _, s) in proves.proves.items()}
+    launches = {}
+    for rec in ticks.values():
+        for name, n in rec["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    out["launches"] = launches
+    say(f"[13] {len(ballot['census_proof']['siblings'])}-level census, one "
+        f"ballot in {SEQ_VOTES} slots: settled, results {results}; proves "
+        f"{json.dumps(out['proves_s'])}; launches of the ticks "
+        f"{json.dumps(launches)}")
     return out
 
 
@@ -2372,7 +2654,7 @@ def c4_only(n_votes):
     stages = StageTimes()
     log.init()
     logging.getLogger("davinci").addHandler(stages)
-    params, w, _, _, out = c4_inputs(n_votes, "[12a]")
+    params, w, _, _, out = sequencer_c4_witness(n_votes, "[12a]")
     cs, out["build"] = c4_build(params, w, "[12a]")
     del w
     (ROOT / "build").mkdir(exist_ok=True)
@@ -2421,14 +2703,16 @@ def c4_only(n_votes):
 def c1_phase(dev, stages, kernels):
     """Phase 5: c1 built, set up, proved and verified on the card.
     Returns (its summary, c2's inner inputs: the proof with fixed
-    randomness, the verifying key, the public inputs hash and the vote id;
-    the G2 combine's recorded arguments)."""
-    cs, public, build_s, vote_id = ballot_circuit()
+    randomness, the verifying key, the public inputs hash and the vote id,
+    with the ballot's witness and the election's private key; the G2
+    combine's recorded arguments)."""
+    cs, public, build_s, bw, priv = ballot_circuit()
     c1 = groth16_phase(dev, cs, public, kernels, stages)
     c1["build_s"] = build_s
     horner_g2 = c1.pop("horner_g2_args")
     inner = {"proof": c1.pop("proof"), "vk": c1.pop("vk"),
-             "inputs_hash": public[0], "vote_id": vote_id}
+             "inputs_hash": public[0], "vote_id": bw.vote_id,
+             "ballot": bw, "priv": priv}
     say(f"[5] c1 summary {json.dumps(c1)}")
     return c1, inner, horner_g2
 
@@ -2866,30 +3150,19 @@ def main(argv) -> int:
     (ROOT / "build").mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="store-", dir=ROOT / "build"))
     try:
-        lap("[10]", t_run)
-        c2, c2_rt, c2_cs, _, c2_proof, _ = c2_phase(stages, inner, root)
-        say(f"[10] summary {json.dumps(c2)}")
-        # c3 aggregates phase 10's proof (the same proof and vote hash
-        # would pad any other slot)
-        vote = (c2_proof, c2_cs.public_values()[0])
-        c2_vk = c2_rt.vk
-        del c2_rt, c2_cs
-        lap("[11b]", t_run)
-        c3 = c3_phase(stages, c2_vk, vote, vote, root)[0]
-        say(f"[11] summary {json.dumps(c3)}")
-        lap("[12]", t_run)
-        c4 = c4_phase(stages, root)
+        lap("[13]", t_run)
+        seq_out = sequencer_phase(stages, inner, root)
     finally:
         shutil.rmtree(root)
-    say(f"[12] summary {json.dumps(c4)}")
+    say(f"[13] summary {json.dumps(seq_out)}")
 
     say(f"whole run: {time.perf_counter() - t_run:.1f} s")
-    # L = 64: B1-B5 per c3 prove, B6 (Fp) per c3 setup
-    launches = {**c1["steady_launches"], **blob["launches"], **addk_launches,
-                **g2_msm["launches"],
-                K.B6_L64.name: c3["setup_launches"][K.B6_L64.name],
-                **{name: n for name, n in c3["prove"][0]["launches"].items()
-                   if name.endswith("_l64")}}
+    # every kernel is on the sequencer's path (phase 13) but B8's, which
+    # phase 8's experiment launches
+    launches = {**addk_launches, **seq_out["launches"]}
+    for k in K.KERNELS:
+        check(launches.get(k.name, 0) > 0,
+              f"{k.name} was not launched by its path")
     say(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "limbs": k.limbs,

@@ -37,6 +37,12 @@ VERBATIM = [
     "circuits/merkle_gadget.py", "circuits/census_gadget.py",
     "circuits/blob_gadget.py", "circuits/statetransition.py",
     "circuits/results.py", "circuits/pairing_gadget6.py",
+    "storage/kv.py", "storage/storage.py", "storage/__init__.py",
+    "sequencer/pipeline.py", "sequencer/__init__.py",
+    "sequencer/provers.py", "csp.py", "statesync.py",
+    "web3/encoding.py", "web3/rpc.py", "web3/txmanager.py", "web3/abi.py",
+    "web3/blobtx.py", "web3/contracts.py", "web3/fakenode.py",
+    "web3/solidity_export.py", "web3/__init__.py",
 ]
 
 
@@ -132,6 +138,10 @@ import importlib, pkgutil, sys
 import davinci_tpu_torch
 import davinci_tpu_torch.msm.bucket_kernel
 import davinci_tpu_torch.blobs.kzg, davinci_tpu_torch.state.blobcodec
+import davinci_tpu_torch.sequencer, davinci_tpu_torch.sequencer.provers
+import davinci_tpu_torch.storage, davinci_tpu_torch.statesync
+import davinci_tpu_torch.csp, davinci_tpu_torch.web3
+import davinci_tpu_torch.web3.contracts, davinci_tpu_torch.web3.fakenode
 for m in pkgutil.walk_packages(davinci_tpu_torch.__path__, "davinci_tpu_torch."):
     importlib.import_module(m.name)
 bad = sorted(n for n in sys.modules
