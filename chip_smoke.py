@@ -123,12 +123,28 @@ Phases, one line of output each (any failure raises and exits non-zero):
      tiers: 64 levels, a 20-level census, the blob on the full 4,096-cell
      domain with its KZG, lookups) and c5 at full size, every key through
      one store under build/ (removed at the end; `DAVINCI_ARTIFACTS_DIR`
-     too, the finalizer's store).  One line a tick (`tick_ballot`,
-     `tick_aggregate`, `tick_transition`, `tick_onchain`, then
-     `tick_finalizer(prove_real=True)` once the chain ends the process):
-     its seconds, the kernels it launched (each of its circuits' kernels
-     must be), its stage times, peak device memory and the constraints of
-     what it built.  Between the ticks, on the runtimes and the systems
+     too, the finalizer's store).  The ballot enters through the node's
+     HTTP API (`api.serve` on 127.0.0.1, with a jobs manager and c1's key
+     as its ballot verifier, one host pairing a vote): the voter's census
+     proof is fetched from it, three votes are refused first (another
+     key's signature, the inputs hash + 1, an address outside the
+     census: 401 each), then `POST /votes` takes the wire ballot with
+     the EIP-191 signature of c2's key over the vote ID, the census proof
+     and c1's proof, and the item it queues must be the direct route's
+     but for the voter's key, which it holds as hex strings (queue C:
+     the worker's provers turn them into ints).  A proving worker
+     (`WorkerClient`, over HTTP to the same server) fetches the job and
+     proves c2 with the sequencer's provers (the build, the setup through
+     the store, the first committed prove and verify), and
+     `/sequencer/workers` must show its one success.  One line for the
+     worker's job and a tick each (`tick_ballot`, which must find no
+     pending ballot, `tick_aggregate`, `tick_transition`,
+     `tick_onchain`, then `tick_finalizer(prove_real=True)` once the
+     chain ends the process): its seconds, the kernels it launched (each
+     of its circuits' kernels must be), its stage times, peak device
+     memory and the constraints of what it built; the vote's status over
+     HTTP after the intake, the worker and the settlement, and `/info`
+     at the end.  Between the ticks, on the runtimes and the systems
      the pipeline made: `verify_vote` true for c2's proof and false for
      its vote hash + 1, and one steady c2 `prove_committed_reuse`,
      verified and refused with a tampered public value, the first and the
@@ -142,11 +158,30 @@ Phases, one line of output each (any failure raises and exits non-zero):
      results[0] + 1 [12d].  The reference's canonical dummy vote passes
      no ballot proof, which the production c2 cannot build, so the provers
      are given this ballot's c2 proof as their dummy before
-     `tick_aggregate`.  A line before each phase gives the seconds since
-     the run began.
+     `tick_aggregate`.
+  14. The node's CLI, through `cli.main` with `sys.argv` set, before
+     phase 13's store is removed; a line per command with its seconds,
+     the kernels it launched, its stage times and peak device memory.
+     `send-blob --cells -n 1 --wait` against the port's `FakeEthNode` on
+     127.0.0.1: a version-1 sidecar of 128 EIP-7594 cell proofs (the
+     iNTT, the quotients, the NTT and one `msm_many` of 2,816 window rows
+     over the ceremony's Lagrange points: B6, then B1-B5 at L = 32),
+     signed and submitted; the node decodes and validates it.  Beside it,
+     `compute_cell_proofs_device` on the same blob with its stage times:
+     its proofs are the sidecar's, cells 0, 64 and 127 are the host
+     path's `compute_cell_proof` and pass `verify_cell_proof`, cell 0's
+     proof is refused for cell 127, and its kernel calls (the first and
+     the largest of each wrapper) are replayed against their plain
+     versions, with the bounds of B1's to B4's largest call.  `e2e
+     --votes 4 --prove-results` over the store: c5's key is loaded, not
+     set up again, and the results are proved on the card.
+     `circuit-compile --export-only` over the store: one `.sol` per BN254
+     key (c4's and c5's), named by its structure hash.
+A line before each phase gives the seconds since the run began.
 
 The line before the last is a JSON object with one entry per kernel (B8:
-per variant) and limb count, with its registers and spills from ptxas;
+per variant) and limb count, with its registers and spills from ptxas
+and its launches on the node's path (phases 13 and 14; B8's in phase 8);
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or without the package beside this file, the script exits non-zero and
 prints no result.
@@ -463,15 +498,27 @@ class StageTimes(logging.Handler):
             self.took[record.getMessage()] = kv["took_s"]
 
 
+def host_points(spec, k, rng):
+    """k distinct random host points: a random point and the sums of a
+    random step, k - 1 host adds in place of k scalar multiplications
+    (tens of seconds at BW6-761's 761 bits)."""
+    pt = spec.gen.mul(rng.randrange(1, spec.r))
+    step = spec.gen.mul(rng.randrange(1, spec.r))
+    out = [pt]
+    for _ in range(k - 1):
+        out.append(out[-1].add(step))
+    return out
+
+
 def random_points(dc, spec, k, rng):
-    """k*k random points in projective form: the host makes k points, the
-    card adds every pair with the plain composition (random Z)."""
+    """k*k random points in projective form: the host makes k points
+    (`host_points`), the card adds every pair with the plain composition
+    (random Z)."""
     import torch
 
     from davinci_tpu_torch.ec import cuda_add
 
-    base = dc.encode_points([spec.gen.mul(rng.randrange(1, spec.r))
-                             for _ in range(k)])
+    base = dc.encode_points(host_points(spec, k, rng))
     i = torch.arange(k * k, device=dc.device)
     p = tuple(a[i // k] for a in base)
     q = tuple(a[i % k] for a in base)
@@ -512,8 +559,7 @@ def b1_phase(dev, name, k=256, tag="[2]"):
     kernel = K.B1.at(dc.df.L)
     rng = random.Random(SEED + 2)
     pts, _ = random_points(dc, spec, k, rng)
-    hosts = [spec.gen.mul(rng.randrange(1, spec.r)) for _ in range(32)]
-    hard_p, hard_q = hard_cases(dc, hosts)
+    hard_p, hard_q = hard_cases(dc, host_points(spec, 32, rng))
     shift = rng.randrange(1, k * k)
     other = tuple(torch.roll(a, shift, 0) for a in pts)
     P = tuple(torch.cat(c) for c in zip(pts, hard_p))
@@ -695,8 +741,9 @@ class G2Batches:
 
 
 def tiled_msm_case(dev, rng_np, n=1 << 17, spec=None):
-    """An MSM (default BN254 G1) of n points tiling 64 distinct bases, with
-    random 12-bit windows, and its host oracle (per-base scalar sums)."""
+    """An MSM (default BN254 G1) of n points tiling 64 distinct bases
+    k_b G, with random 12-bit windows, and its host oracle: the per-base
+    scalar sums t_b, then (sum_b k_b t_b) G, one host multiplication."""
     import numpy as np
     import torch
 
@@ -706,20 +753,20 @@ def tiled_msm_case(dev, rng_np, n=1 << 17, spec=None):
 
     spec = spec or C.bn254_g1
     dc = get_device_curve(spec, dev)
-    base_pts = [spec.gen.mul(int(k)) for k in rng_np.integers(1, 2**31, 64)]
-    P64 = dc.encode_points(base_pts)
+    ks = [int(k) for k in rng_np.integers(1, 2**31, 64)]
+    P64 = dc.encode_points([spec.gen.mul(k) for k in ks])
     pts = tuple(a.repeat((n // 64,) + (1,) * (a.dim() - 1)) for a in P64)
     W = -(-spec.r.bit_length() // WINDOW_BITS)
     S = rng_np.integers(0, NBUCKETS, size=(n, W), dtype=np.int32)
     # the top window of a reduced scalar (2 bits at BN254, 3 at BLS12-381)
     S[:, -1] &= (1 << (spec.r.bit_length() - WINDOW_BITS * (W - 1))) - 1
     S64 = S.astype(np.int64)
-    want = spec.infinity()
+    acc = 0
     for b in range(64):
         per_window = S64[b::64, :].sum(axis=0)
         total = sum(int(v) << (WINDOW_BITS * j) for j, v in enumerate(per_window))
-        want = want.add(base_pts[b].mul(total % spec.r))
-    return dc, pts, torch.as_tensor(S, device=dev), want
+        acc += ks[b] * total
+    return dc, pts, torch.as_tensor(S, device=dev), spec.gen.mul(acc % spec.r)
 
 
 def msm_phase(fn, case):
@@ -836,6 +883,48 @@ class Capture:
             setattr(self._module(name), name, fn)
 
 
+def b2_work(args):
+    """(bytes, mixed adds) of one B2 call: its packed planes, keys and
+    streamed accumulators, and the adds the sorted keys ask for (a lane's
+    row joins the run of the row before where their buckets agree)."""
+    dc, pts_arr, keys_arr, signed = args
+    rows, LP, nl = pts_arr.shape
+    bucket = (keys_arr >> 1) if signed else keys_arr
+    return (rows * nl * (LP + 1 + 3 * dc.df.L) * 4,
+            int((bucket[1:] == bucket[:-1]).sum()))
+
+
+def b1_planes_work(args):
+    """(bytes, adds) of one B1 call on (L, ...) planes: two points read,
+    one written, an add each."""
+    dc, p, _ = args
+    n = p[0][0].numel()
+    return 9 * n * dc.df.L * 4, n
+
+
+def b3_work(args):
+    """(bytes, adds) of one B3 call on (L, Wt, NB) buckets: the buckets
+    read, A and B written (C lanes a window), 2K - 1 adds a lane."""
+    dc, buckets = args
+    L, Wt, NB = buckets[0].shape
+    C = reduce_lanes(NB)
+    return (3 * L * Wt * NB + 6 * L * Wt * C) * 4, Wt * C * (2 * (NB // C) - 1)
+
+
+def reduce_lanes(NB):
+    """B3's lanes a window, as `bucket_reduce_kernel` picks them."""
+    from davinci_tpu_torch.msm import bucket_kernel as bk
+
+    return bk.REDUCE_C if NB % bk.REDUCE_C == 0 else NB
+
+
+def b4_work(args):
+    """(bytes, adds) of one B4 call on (K, 3L, M) point columns."""
+    dc, s = args
+    Ks, L3, M = s.shape
+    return (Ks + 2) * L3 * M * 4, M * (2 * Ks - 1)
+
+
 def scan_kernels_phase(calls, regs, tag="[4c]"):
     """B2-B5 (the build for the curve's L) against their plain versions on
     the main path's inputs (`Capture.calls`; B5 at both of its shapes: the
@@ -855,11 +944,10 @@ def scan_kernels_phase(calls, regs, tag="[4c]"):
     dc, pts_arr, keys_arr, signed = args["_bucket_scan"]
     rows, LP, nl = pts_arr.shape
     L = dc.df.L
-    bucket = (keys_arr >> 1) if signed else keys_arr
-    mixed_adds = int((bucket[1:] == bucket[:-1]).sum())
+    b2_bytes, mixed_adds = b2_work(args["_bucket_scan"])
     _, buckets = args["bucket_reduce_kernel"]
     _, Wt, NB = buckets[0].shape
-    C = bk.REDUCE_C if NB % bk.REDUCE_C == 0 else NB
+    C = reduce_lanes(NB)
     _, s = args["suffix_reduce_kernel"]
     Ks, _, M = s.shape
     T = bk.suffix_chunk(Ks)
@@ -871,15 +959,15 @@ def scan_kernels_phase(calls, regs, tag="[4c]"):
     table = [
         (K.B2.at(L), lambda: bk._bucket_scan(dc, pts_arr, keys_arr, signed),
          lambda: bk._bucket_scan_plain(dc, pts_arr, keys_arr, signed),
-         rows * nl * (LP + 1 + 3 * L) * word, mixed_adds, "mixed",
+         b2_bytes, mixed_adds, "mixed",
          {"rows": rows, "lanes": nl}),
         (K.B3.at(L), lambda: bk.bucket_reduce_kernel(dc, buckets),
          lambda: bk._bucket_reduce_plain(dc, buckets, C),
-         (3 * L * Wt * NB + 6 * L * Wt * C) * word,
-         Wt * C * (2 * (NB // C) - 1), "add", {"Wt": Wt, "NB": NB, "C": C}),
+         *b3_work(args["bucket_reduce_kernel"]), "add",
+         {"Wt": Wt, "NB": NB, "C": C}),
         (K.B4.at(L), lambda: bk.suffix_reduce_kernel(dc, s),
          lambda: bk._suffix_reduce_split_plain(dc, s, T),
-         (Ks + 2) * 3 * L * M * word, M * (2 * Ks - 1), "add",
+         *b4_work(args["suffix_reduce_kernel"]), "add",
          {"K": Ks, "M": M, "T": T}),
         (b5, lambda: bk.horner_kernel(dc, sums, W, wbits),
          lambda: bk._horner_plain(dc, sums, W, wbits),
@@ -963,7 +1051,8 @@ def captured_add_phase(args):
     err = max_err(rows(got), plain())
     check(err == 0, f"{kernel.name} differs from its plain version")
     n = p[0][0].numel()
-    bound_ms, bound_by = bound(9 * n * dc.df.L * 4, n, "add", dc.df.L)
+    bound_ms, bound_by = bound(*b1_planes_work(args["point_add_planes"]),
+                               "add", dc.df.L)
     return kernel.name, {"n": n, "max_abs_err": err, "ms": cuda_ms(run, 20),
                          "device_ms": device_ms(run, 20, "point_add_kernel"),
                          "plain_ms": cuda_ms(plain, 3), "bound_ms": bound_ms,
@@ -989,9 +1078,8 @@ def replay_phase(cap, tag):
         return tuple(a.T.reshape(p[0].shape) for a in out)
 
     def reduce_plain(dc, buckets):
-        NB = buckets[0].shape[2]
-        C = bk.REDUCE_C if NB % bk.REDUCE_C == 0 else NB
-        return bk._bucket_reduce_plain(dc, buckets, C)
+        return bk._bucket_reduce_plain(dc, buckets,
+                                       reduce_lanes(buckets[0].shape[2]))
 
     def suffix_plain(dc, s):
         return bk._suffix_reduce_split_plain(dc, s, bk.suffix_chunk(s.shape[0]))
@@ -1610,6 +1698,13 @@ C2_PROCESS_ID = 12345
 C2_CONSTRAINTS = 3437706  # the reference's full-size build (BENCH_NOTES.md)
 
 
+def c2_signing_key():
+    """The voter's secp256k1 key of phase 10a's witness, from the seed."""
+    from davinci_tpu_torch import curves as C
+
+    return random.Random(SEED).randrange(1, C.secp256k1.r)
+
+
 def c2_inputs(c1):
     """Phase 10a: the production vote verifier's parameters and witness
     (BN254 inner pairing with c1's verifying key, secp256k1 signed by
@@ -1627,7 +1722,7 @@ def c2_inputs(c1):
 
     params = VoteVerifierParams(inner_ctx=bn254_pairing, inner_vk=c1["vk"],
                                 sig_spec=C.secp256k1, use_lookup=True)
-    priv = random.Random(SEED).randrange(1, C.secp256k1.r)
+    priv = c2_signing_key()
 
     def eth_sign(d, e):
         r, s, _ = sign(d, e.to_bytes(32, "big"))
@@ -2279,11 +2374,13 @@ def c4_first_prove(rt, cs, stages, tag):
 # phase 13: c4's slots, the sequencer's `votes_per_batch`, which c4's
 # n_votes follows (pipeline.py:412) whatever the ballots in the batch
 SEQ_VOTES = 2
-# the kernels each tick of phase 13 must launch: c2's prove (its setup
-# adds B6 at L = 32), c3's prove and setup, c4's and c5's BN254 proves
-# (the transition's blob adds its KZG MSM on the L = 32 G1 kernels)
+# the kernels each step of phase 13 must launch: the proving worker's c2
+# prove (its setup adds B6 at L = 32; the ballot tick then finds no
+# pending ballot), c3's prove and setup, c4's and c5's BN254 proves (the
+# transition's blob adds its KZG MSM on the L = 32 G1 kernels)
 TICK_KERNELS = {
-    "tick_ballot": COMMITTED_KERNELS,
+    "worker": COMMITTED_KERNELS,
+    "tick_ballot": (),
     "tick_aggregate": C3_PROVE_KERNELS + C3_SETUP_KERNELS,
     "tick_transition": BN254_KERNELS + ("point_add_g1_l32",
                                         "bucket_scan_g1_l32", "mont_mul_l32"),
@@ -2389,10 +2486,17 @@ class RuntimeProves:
 
 
 def tick(seq, name, stages, kept, **kw):
-    """One tick of the sequencer, `name`, driven with every launch count
-    set to 0 just before it and read just after: its seconds, the kernels
-    it launched (each of `TICK_KERNELS[name]` must be), its stage times,
-    peak device memory, and the constraints of each circuit it built."""
+    """One tick of the sequencer, `name`, through `drive`."""
+    return drive(name, lambda: getattr(seq, name)(**kw), stages, kept)
+
+
+def drive(name, step, stages, kept):
+    """One step of phase 13, `name` (a tick of the sequencer, or the
+    proving worker's job), driven by calling `step` with every launch
+    count set to 0 just before it and read just after: its seconds, the
+    kernels it launched (each of `TICK_KERNELS[name]` must be), its stage
+    times, peak device memory, and the constraints of each circuit it
+    built."""
     import torch
 
     from davinci_tpu_torch import kernels as K
@@ -2403,7 +2507,7 @@ def tick(seq, name, stages, kept, **kw):
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    getattr(seq, name)(**kw)
+    step()
     torch.cuda.synchronize()
     rec = {"s": time.perf_counter() - t0,
            "launches": {k.name: k.launches for k in K.KERNELS if k.launches},
@@ -2427,7 +2531,7 @@ def election_inputs(c1, params, w):
     signer among them (a LeanIMT, compressed proofs), the wire ballot
     with c2's client material: c1's proof, its inputs hash, and the
     secp256k1 signature and key of `c2_inputs`.  Returns (the process,
-    the private key, the `submit_ballot` arguments)."""
+    the private key, the `submit_ballot` arguments, the census)."""
     from davinci_tpu_torch import spec as protocol
     from davinci_tpu_torch.census import CensusDB
     from davinci_tpu_torch.groth16.serialize import proof_to_dict
@@ -2458,7 +2562,112 @@ def election_inputs(c1, params, w):
                    "pubkey": [w.pubkey.x.v, w.pubkey.y.v]},
         "census_proof": cdb.proof_by_root(census_root, w.address)}
     check(bw.process_id == w.process_id, "c1 and c2 are of one process")
-    return info, c1["priv"], ballot
+    return info, c1["priv"], ballot, cdb
+
+
+# the proving farm's master seed (worker ids and tokens derive from it)
+WORKER_SEED = "chip-smoke"
+
+
+class IntKeyProvers:
+    """A proving worker's provers: `provers.prove_vote` on the job's item
+    with the voter's key as ints.  Queue C: `api.py` stores the key it
+    recovers from the signature as hex strings, and `provers.py` hands
+    them to `spec.point`, which turns only ints into field elements (an
+    AttributeError at "solve" or "prove").  The error is kept here, since
+    `WorkerClient` reports only its message to the master."""
+
+    def __init__(self, provers):
+        self.provers, self.error = provers, None
+
+    def prove_vote(self, item):
+        client = dict(item["client"])
+        client["pubkey"] = [int(v, 16) for v in client["pubkey"]]
+        try:
+            return self.provers.prove_vote({**item, "client": client})
+        except Exception as e:
+            self.error = e
+            raise
+
+
+def http_json(base, method, path, body=None):
+    """One request to the node's HTTP API at `base`: (status, JSON)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, method=method,
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_intake(base, ballot, w):
+    """Phase 13's way in: the voter's census proof fetched from the API,
+    three votes refused (a signature by another key, 401; the ballot
+    proof's inputs hash + 1, 401, after the pairing; an address outside
+    the census, signed by its own key, 401, whose census proof the API
+    does not have, 404), then the ballot of c2's witness posted as a
+    client sends it: the wire ballot, the EIP-191 signature of its key
+    over the vote ID, the census proof and c1's proof as `ballotProof`.
+    Returns the statuses and answers."""
+    from davinci_tpu_torch import ethereum as eth
+    from davinci_tpu_torch.sequencer.pipeline import ballot_to_wire
+
+    def signed(key):
+        payload = ballot["vote_id"].to_bytes(8, "big").rjust(32, b"\x00")
+        r, s_, rec = eth.sign_eth_prefixed(key, payload)
+        return {"r": r, "s": s_, "rec": rec}
+
+    root, address = ballot["census_proof"]["root"], ballot["address"]
+    status, got = http_json(base, "GET", f"/censuses/{root}/proof/{address}")
+    check(status == 200, f"census proof over HTTP: {status} {got}")
+    sig = signed(c2_signing_key())
+    check((sig["r"], sig["s"]) == (w.sig_r, w.sig_s),
+          "the EIP-191 signature over the vote ID is c2's witness's")
+    client = ballot["client"]
+    good = {"processID": ballot["pid"], "address": address,
+            "voteID": ballot["vote_id"], "weight": ballot["weight"],
+            "ballot": [str(c) for c in ballot_to_wire(ballot["ballot"])],
+            "signature": sig,
+            "censusProof": {"kind": "merkle", "proof": got["proof"]},
+            "ballotProof": {"proof": client["ballot_proof"],
+                            "inputsHash": client["inputs_hash"]}}
+    other = random.Random(SEED + 14).randrange(1, eth.N)
+    outsider = int.from_bytes(
+        eth.address_from_pubkey(eth.pubkey_from_priv(other)), "big")
+    out = {}
+    for what, body, want in (
+            ("another key's signature", {**good, "signature": signed(other)},
+             (401, "signature does not match address")),
+            ("inputs hash + 1", {**good, "ballotProof": {
+                **good["ballotProof"],
+                "inputsHash": hex(int(client["inputs_hash"], 16) + 1)}},
+             (401, "ballot proof invalid")),
+            ("an address outside the census",
+             {**good, "address": outsider, "signature": signed(other)},
+             (401, "census proof invalid"))):
+        t0 = time.perf_counter()
+        status, got = http_json(base, "POST", "/votes", body)
+        out[what] = {"status": status, "error": got.get("error"),
+                     "s": time.perf_counter() - t0}
+        check((status, got.get("error")) == want,
+              f"POST /votes with {what}: {status} {got}, not {want}")
+    status, got = http_json(base, "GET", f"/censuses/{root}/proof/{outsider}")
+    out["the outsider's census proof"] = {"status": status}
+    check(status == 404, f"the outsider's census proof: {status} {got}")
+    t0 = time.perf_counter()
+    status, got = http_json(base, "POST", "/votes", good)
+    out["the ballot"] = {"status": status, "answer": got,
+                         "s": time.perf_counter() - t0}
+    check(status == 200 and got == {"status": "pending",
+                                    "voteID": ballot["vote_id"]},
+          f"POST /votes with the ballot: {status} {got}")
+    return out
 
 
 def sequencer_phase(stages, c1, root):
@@ -2467,34 +2676,37 @@ def sequencer_phase(stages, c1, root):
     c2's parameters of phase 10, c3 at `C3_SLOTS` slots, c4 at
     `SEQ_VOTES` slots and the production tiers), its artifacts through a
     store under `root` (`DAVINCI_ARTIFACTS_DIR` too, the finalizer's
-    `default_store()`): one ballot, then `tick_ballot`, `tick_aggregate`,
+    `default_store()`).  The node's HTTP API (`api.serve` on 127.0.0.1,
+    with a jobs manager and c1's key as its ballot verifier) takes the
+    ballot and refuses three bad votes (`http_intake`); a proving worker
+    (`WorkerClient`, over HTTP) proves c2 with the sequencer's provers;
+    then `tick_ballot` (which finds no pending ballot), `tick_aggregate`,
     `tick_transition`, `tick_onchain`, `end_process` and
-    `tick_finalizer(prove_real=True)`, a line each (`tick`).  Between
+    `tick_finalizer(prove_real=True)`, a line each (`drive`).  Between
     the ticks, on the runtimes and systems the pipeline made, what phases
     10-12 measure: c2's steady reuse prove with its kernel calls replayed
     [10d]; c3's prove's kernel calls (recorded during the tick) replayed
     and its proof refused with the batch hash + 1 [11d]; c4's proof
     refused with root_after + 1, then one steady reuse prove, refused
     and replayed [12c]; c5's proof refused with results[0] + 1 [12d].
-    Returns its results, with the launches of the ticks summed."""
+    Returns its results, with the launches of the worker and the ticks
+    summed."""
     import os
 
+    from davinci_tpu_torch.api import API, serve
     from davinci_tpu_torch.circuits import artifacts
-    from davinci_tpu_torch.circuits.statetransition import (
-        StateTransitionParams,
-    )
-    from davinci_tpu_torch.circuits.voteverifier import witness_vote_hash
-    from davinci_tpu_torch.groth16.serialize import proof_from_dict
+    from davinci_tpu_torch.groth16 import Groth16
     from davinci_tpu_torch.sequencer import InMemoryChain, Sequencer
     from davinci_tpu_torch.sequencer.provers import (
         ProtocolProvers,
         ProverModes,
     )
-    from davinci_tpu_torch.storage import MemoryKV, Storage, VoteIDStatus
+    from davinci_tpu_torch.storage import MemoryKV, Storage
+    from davinci_tpu_torch.workers import JobsManager, WorkerManager
 
     os.environ["DAVINCI_ARTIFACTS_DIR"] = str(root)
     params, w = c2_inputs(c1)
-    info, priv, ballot = election_inputs(c1, params, w)
+    info, priv, ballot, cdb = election_inputs(c1, params, w)
     provers = ProtocolProvers(
         params, store=artifacts.ArtifactStore(root),
         modes=ProverModes(vote="prove", aggregate="prove",
@@ -2508,12 +2720,83 @@ def sequencer_phase(stages, c1, root):
                     census_levels=C4_TIERS["census_levels"])
     seq.register_process(info, priv_key=priv)
     pid = info.process_id
-    seq.submit_ballot(**ballot)
+    api = API(seq, cdb, jobs_manager=JobsManager(
+        seq.storage, WorkerManager(WORKER_SEED)),
+        ballot_verifier=(Groth16("bn254"), c1["vk"]))
+    server, _ = serve(api, "127.0.0.1", 0)
+    try:
+        return node_phase(stages, seq, provers, params, w, ballot, server,
+                          c1["ballot"].field_values, root)
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def node_phase(stages, seq, provers, params, w, ballot, server, tally, root):
+    """Phase 13 from the node's HTTP API on: the intake (`http_intake`),
+    then a proving worker over HTTP with the sequencer's provers
+    (`IntKeyProvers`), the ticks, and the vote's status over HTTP after
+    the worker and once settled; `sequencer_phase` says the rest."""
+    from davinci_tpu_torch.circuits import artifacts
+    from davinci_tpu_torch.circuits.statetransition import (
+        StateTransitionParams,
+    )
+    from davinci_tpu_torch.circuits.voteverifier import witness_vote_hash
+    from davinci_tpu_torch.groth16.serialize import proof_from_dict
+    from davinci_tpu_torch.storage import VoteIDStatus
+    from davinci_tpu_torch.workers import WorkerClient, worker_uuid
+
+    chain, pid = seq.chain, ballot["pid"]
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    status_path = f"/votes/{ballot['vote_id']}/process/{pid}/status"
     out = {"votes_per_batch": SEQ_VOTES, "c3_slots": C3_SLOTS, "ticks": {}}
+    out["intake"] = http_intake(base, ballot, w)
+    [(s, item)] = seq.storage.pending_ballots.next(1)
+    seq.storage.pending_ballots.release(s)
+    # the API's item is the direct route's (`submit_ballot(**ballot)`) but
+    # for the key, which it holds as hex strings (queue C)
+    check(item["client"].pop("pubkey") == [hex(v) for v in
+                                           ballot["client"]["pubkey"]]
+          and item["client"] == {k: v for k, v in ballot["client"].items()
+                                 if k != "pubkey"}
+          and item["census_proof"] == ballot["census_proof"],
+          "the API's pending ballot is the direct route's")
+    out["status_pending"] = http_json(base, "GET", status_path)
+    check(out["status_pending"] == (200, {"status": "pending"}),
+          f"the vote's status after the intake: {out['status_pending']}")
+    say(f"[13] HTTP intake on {base}: {json.dumps(out['intake'])}")
+
+    def transport(method, path, body):  # `cli.cmd_worker`'s, checked
+        status, got = http_json(base, method, path, body)
+        check(status == 200, f"{method} {path}: {status} {got}")
+        return got
+
+    worker_provers = IntKeyProvers(provers)
+    wid = worker_uuid(WORKER_SEED, "card-0")
+    worker = WorkerClient(wid, transport, worker_provers)
     ticks = out["ticks"]
     with KeptBuilds() as kept, RuntimeProves({"aggregator": C3_WRAPPERS}) \
             as proves:
+        took = []
+        ticks["worker"] = drive("worker", lambda: took.append(worker.tick()),
+                                stages, kept)
+        check(worker_provers.error is None,
+              f"the worker's prove failed: {worker_provers.error!r}")
+        out["workers"] = http_json(base, "GET", "/sequencer/workers")
+        check(took == [True] and out["workers"] == (200, {"workers": {
+            wid: {"success": 1, "failures": 0, "banned": False}}}),
+            f"the worker's job: {took} {out['workers']}")
+        out["status_verified"] = http_json(base, "GET", status_path)
+        check(out["status_verified"] == (200, {"status": "verified"}),
+              f"the vote's status after the worker: {out['status_verified']}")
+        check(seq.storage.pending_ballots.size() == 0,
+              "a ballot is pending after the worker's job")
+        say(f"[13] worker {wid} over HTTP: {json.dumps(out['workers'][1])}; "
+            f"the vote's status {out['status_verified'][1]['status']}")
         ticks["tick_ballot"] = tick(seq, "tick_ballot", stages, kept)
+        check(not ticks["tick_ballot"]["launches"]
+              and seq.storage.verified_ballots.size() == 1,
+              "tick_ballot found a pending ballot")
         [(s, item)] = seq.storage.verified_ballots.next(1)
         seq.storage.verified_ballots.release(s)
         vp = item["vote_proof"]
@@ -2594,12 +2877,15 @@ def sequencer_phase(stages, c1, root):
               "the chain's root is the state's after the batch")
         check(seq.storage.vote_status(pid, w.vote_id) == VoteIDStatus.SETTLED,
               "the vote is settled")
+        out["status_settled"] = http_json(base, "GET", status_path)
+        check(out["status_settled"] == (200, {"status": "settled"}),
+              f"the vote's status once settled: {out['status_settled']}")
         chain.end_process(pid)
         ticks["tick_finalizer"] = tick(seq, "tick_finalizer", stages, kept,
                                        rng=random.Random(SEED),
                                        prove_real=True)
     results = chain.process(pid).results
-    tally = list(c1["ballot"].field_values)
+    tally = list(tally)
     check(results == tally, f"the results {results} are the tally {tally}")
     check(artifacts.default_store().root == root,
           "the finalizer's store is the run's")
@@ -2619,10 +2905,223 @@ def sequencer_phase(stages, c1, root):
         for name, n in rec["launches"].items():
             launches[name] = launches.get(name, 0) + n
     out["launches"] = launches
+    out["info"] = http_json(base, "GET", "/info")
+    check(out["info"][0] == 200 and out["info"][1]["processes"] == 1,
+          f"/info: {out['info']}")
     say(f"[13] {len(ballot['census_proof']['siblings'])}-level census, one "
         f"ballot in {SEQ_VOTES} slots: settled, results {results}; proves "
         f"{json.dumps(out['proves_s'])}; launches of the ticks "
         f"{json.dumps(launches)}")
+    return out
+
+
+# phase 14: the cells' stage events (`blobs/cells.py`), and the blob key
+# of `send-blob` (any funded key of the fake node)
+CELL_STAGES = ("cells.intt", "cells.quotient", "cells.ntt", "cells.msm_many",
+               "cells.decode")
+CELL_IDS = (0, 64, 127)
+BLOB_KEY = 0xB10B5EED
+
+
+def run_cli(name, argv, stages):
+    """One command of the port's CLI (`cli.main` with `sys.argv` set, as
+    `python -m davinci_tpu_torch.cli ...` runs it), driven with every
+    launch count set to 0 just before it and read just after: the JSON of
+    its last line of output, its seconds, the kernels it launched, its
+    stage times and peak device memory, on a line of its own."""
+    import contextlib
+    import io
+
+    import torch
+
+    from davinci_tpu_torch import cli
+    from davinci_tpu_torch import kernels as K
+
+    stages.took.clear()
+    for k in K.KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    printed, argv_was = io.StringIO(), sys.argv
+    sys.argv = ["davinci-tpu", *argv]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            cli.main()
+        torch.cuda.synchronize()
+    finally:
+        sys.argv = argv_was
+    rec = {"argv": argv, "s": time.perf_counter() - t0,
+           "launches": {k.name: k.launches for k in K.KERNELS if k.launches},
+           "stages_s": dict(stages.took),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "out": json.loads(printed.getvalue().strip().splitlines()[-1])}
+    say(f"[14] {name}: {json.dumps(rec)}")
+    return rec
+
+
+def send_blob_phase(stages):
+    """`send-blob --cells -n 1 --wait` against the port's `FakeEthNode` on
+    127.0.0.1: the CLI signs and submits a version-1 sidecar of 128 cell
+    proofs, which the node decodes and validates (sidecar version, proof
+    count, versioned hashes; it then executes nothing at an account, so
+    the receipt's status is 0x0).  Beside it, `compute_cell_proofs_device`
+    on the same blob with its stage times and every kernel call recorded:
+    its 128 proofs are the sidecar's; cells 0, 64 and 127 are the host
+    path's `compute_cell_proof` and pass `verify_cell_proof`, and cell 0's
+    proof is refused for cell 127; the recorded calls are replayed against
+    their plain versions (`replay_phase`), with the bounds of B1's to
+    B4's largest call.  Returns its record."""
+    import torch
+
+    from davinci_tpu_torch import ethereum as eth
+    from davinci_tpu_torch.blobs import cells
+    from davinci_tpu_torch.blobs.kzg import Blob, blob_to_commitment
+    from davinci_tpu_torch.web3.blobtx import SIDECAR_VERSION_1
+    from davinci_tpu_torch.web3.encoding import rlp_decode
+    from davinci_tpu_torch.web3.fakenode import FakeEthNode
+
+    node = FakeEthNode()
+    decoded, real_decode = [], node._decode_raw_tx
+
+    def decode(raw):  # the node's own checks; a Revert propagates
+        got = real_decode(raw)
+        decoded.append((raw, got))
+        return got
+
+    node._decode_raw_tx = decode
+    server = node.serve()
+    try:
+        rec = run_cli("send-blob --cells", [
+            "send-blob", "--rpc", f"http://127.0.0.1:{server.server_address[1]}/",
+            "--privkey", hex(BLOB_KEY), "--cells", "-n", "1", "--wait",
+            "--seed", str(SEED)], stages)
+    finally:
+        server.shutdown()
+        server.server_close()
+    sender = eth.address_from_pubkey(eth.pubkey_from_priv(BLOB_KEY))
+    [(raw, (got_sender, _, _, nonce, hashes))] = decoded
+    check(raw[0] == 0x03 and raw[1] == SIDECAR_VERSION_1,
+          "a type-3 transaction with a version-1 sidecar")
+    _, blobs, commitments, proofs = rlp_decode(raw[2:])
+    check(got_sender == sender and nonce == 0 and len(hashes) == 1
+          and len(proofs) == cells.CELLS_PER_BLOB
+          and rec["out"]["from"] == "0x" + sender.hex()
+          and rec["out"]["status"] in ("0x0", "0x1"),
+          "the node took the sidecar of 128 proofs from the sender")
+    for name in ("point_add_g1_l32", "bucket_scan_g1_l32", "mont_mul_l32"):
+        check(rec["launches"].get(name, 0) > 0,
+              f"{name} was not launched by send-blob --cells")
+    out = {"send_blob": rec}
+
+    rng = random.Random(SEED)  # the CLI's blob of --seed SEED
+    blob = Blob([rng.randrange(1 << 248) for _ in range(cells.BLOB_CELLS)])
+    check(blob.to_bytes() == blobs[0], "the CLI's blob is the seed's")
+    stages.took.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Capture(Capture.PROVE, largest=True) as cap:
+        dev_proofs = cells.compute_cell_proofs_device(blob)
+    out["device_s"] = time.perf_counter() - t0
+    out["stages_s"] = {k: stages.took[k] for k in CELL_STAGES}
+    check(dev_proofs == [bytes(p) for p in proofs],
+          "the device's 128 proofs are the sidecar's")
+    commitment = bytes(commitments[0])
+    check(commitment == blob_to_commitment(blob), "the sidecar's commitment")
+    t0 = time.perf_counter()
+    coeffs = cells.blob_to_coeffs(blob)
+    host = {cid: cells.compute_cell_proof(blob, cid, coeffs)
+            for cid in CELL_IDS}
+    out["host_s"] = time.perf_counter() - t0
+    check(all(host[cid] == dev_proofs[cid] for cid in CELL_IDS),
+          f"cells {CELL_IDS}: the device's proofs are not the host path's")
+    t0 = time.perf_counter()
+    ext = cells.compute_cells(blob)
+    for cid in CELL_IDS:
+        check(cells.verify_cell_proof(commitment, cid, ext[cid],
+                                      dev_proofs[cid]),
+              f"cell {cid}'s proof does not verify")
+    check(not cells.verify_cell_proof(commitment, 127, ext[127], dev_proofs[0]),
+          "cell 0's proof verifies for cell 127")
+    out["verify_s"] = time.perf_counter() - t0
+    say(f"[14] cell proofs beside the CLI: {out['device_s']:.3f} s on the "
+        f"card, stages {json.dumps(out['stages_s'])}; cells {CELL_IDS} equal "
+        f"to the host path ({out['host_s']:.1f} s) and verified, one "
+        f"refused ({out['verify_s']:.1f} s)")
+    for name, work, kind in (("point_add_planes", b1_planes_work, "add"),
+                             ("_bucket_scan", b2_work, "mixed"),
+                             ("bucket_reduce_kernel", b3_work, "add"),
+                             ("suffix_reduce_kernel", b4_work, "add")):
+        args = max(cap.calls[name], key=call_size)
+        nbytes, ops = work(args)
+        out[f"{name}_bound"] = dict(zip(("bound_ms", "bound_by"), bound(
+            nbytes, ops, kind, args[0].df.L)), bytes=nbytes, ops=ops)
+    out["replay"] = replay_phase(cap, "[14]")
+    say(f"[14] bounds of the largest B1-B4 calls: "
+        f"{json.dumps({k: v for k, v in out.items() if k.endswith('_bound')})}")
+    return out
+
+
+def cli_phase(stages, root, seq_out):
+    """Phase 14: the node's CLI on the card, through `cli.main`, before
+    phase 13's store under `root` is removed: `send-blob --cells`
+    (`send_blob_phase`); `e2e --votes 4 --prove-results` over the store
+    (`DAVINCI_ARTIFACTS_DIR`), a fresh store object as a new process
+    makes, which must load c5's key and not set it up again (the
+    finalizer's discrete-log search bounded by `C5_MAX_MESSAGE`, as in
+    phase 13: the results are at most the votes); `circuit-compile
+    --export-only` over the store, which must write one `.sol` per BN254
+    artifact, named by its structure hash.  A line per command (`run_cli`).
+    Returns the records and the launches of the commands summed."""
+    from davinci_tpu_torch import sequencer
+    from davinci_tpu_torch.circuits import artifacts
+
+    out = send_blob_phase(stages)
+
+    card = sequencer.Sequencer
+
+    class Bounded(card):
+        def __init__(self, *a, **kw):
+            kw.setdefault("max_dl_bound", C5_MAX_MESSAGE)
+            super().__init__(*a, **kw)
+
+    artifacts._default_store = None
+    sequencer.Sequencer = Bounded
+    try:
+        e2e = out["e2e"] = run_cli("e2e --prove-results", [
+            "e2e", "--votes", "4", "--prove-results"], stages)
+    finally:
+        sequencer.Sequencer = card
+    res = e2e["out"]
+    check(res["results_proven"] and res["votes"] == 4
+          and res["results"][0] + res["results"][1] == 4,
+          f"e2e's results: {res}")
+    check("artifacts.load" in e2e["stages_s"]
+          and "artifacts.setup" not in e2e["stages_s"],
+          "e2e set c5's key up again")
+    for name in BN254_KERNELS:
+        check(e2e["launches"].get(name, 0) > 0,
+              f"{name} was not launched by e2e --prove-results")
+    setup_s = seq_out["ticks"]["tick_finalizer"]["stages_s"]["artifacts.setup"]
+    say(f"[14] c5's key: set up in {setup_s} s by phase 13's finalizer, "
+        f"loaded in {e2e['stages_s']['artifacts.load']} s by e2e")
+
+    sol_dir = root / "sol"
+    cc = out["circuit_compile"] = run_cli("circuit-compile --export-only", [
+        "circuit-compile", "--artifacts-dir", str(root), "--out",
+        str(sol_dir), "--export-only"], stages)
+    metas = [json.loads(m.read_text()) for m in sorted(root.glob("*/meta.json"))]
+    want = [f"{m['circuit_id']}.{m['structure_hash'][:16]}.sol"
+            for m in metas if m["curve"] == "bn254"]
+    check(len(want) == 2 and cc["out"] == {"compiled": [], "exported": want}
+          and all("pragma solidity" in (sol_dir / name).read_text()
+                  for name in want),
+          f"circuit-compile wrote {cc['out']}, not one .sol per BN254 key "
+          f"{want}")
+    launches = {}
+    for rec in (out["send_blob"], e2e, cc):
+        for name, n in rec["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    out["launches"] = launches
     return out
 
 
@@ -3152,14 +3651,20 @@ def main(argv) -> int:
     try:
         lap("[13]", t_run)
         seq_out = sequencer_phase(stages, inner, root)
+        say(f"[13] summary {json.dumps(seq_out)}")
+        lap("[14]", t_run)
+        cli_out = cli_phase(stages, root, seq_out)
     finally:
         shutil.rmtree(root)
-    say(f"[13] summary {json.dumps(seq_out)}")
+    say(f"[14] summary {json.dumps(cli_out)}")
 
     say(f"whole run: {time.perf_counter() - t_run:.1f} s")
-    # every kernel is on the sequencer's path (phase 13) but B8's, which
-    # phase 8's experiment launches
-    launches = {**addk_launches, **seq_out["launches"]}
+    # every kernel is on the node's path (phases 13 and 14) but B8's,
+    # which phase 8's experiment launches
+    launches = {**addk_launches}
+    for path in (seq_out, cli_out):
+        for name, n in path["launches"].items():
+            launches[name] = launches.get(name, 0) + n
     for k in K.KERNELS:
         check(launches.get(k.name, 0) > 0,
               f"{k.name} was not launched by its path")

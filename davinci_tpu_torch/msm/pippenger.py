@@ -22,6 +22,11 @@ the reference does:
     Hillis-Steele suffix scan plus a tree sum; Horner last (on CUDA one
     launch of B5's G2 build).
 
+`msm_many` runs M MSMs of one G1 point set on the card as M*W rows of
+one scan path (the EIP-7594 cell proofs' 128 commitments over the blob
+setup), and one `msm` per m otherwise; `msm_host_input` wraps `msm` for
+host points and int scalars.
+
 The tests drive `_msm_fused` and `_msm_scan` directly on the CPU, where
 every kernel wrapper runs its plain version.
 """
@@ -434,12 +439,12 @@ def _msm_fused(curve, points, scalar_limbs):
     return _horner(curve, sums, W)
 
 
-def _msm_scan(curve, points, scalar_limbs, precomp=None):
-    """The scan path (reference `pippenger.py:692-741`): signed sort keys
-    (recoded before padding), packed planes (`precomp`, or packed here),
-    padding to a power of two and to COLS at the sink key, window sums per
-    tile, Horner.  G1 only; the affine input contract (z in {0, one})."""
-    keys = _signed_sort_keys(scalar_limbs)
+def _scan_sums(curve, points, keys_all, precomp=None):
+    """The scan path's window sums of rows of signed sort keys: keys_all
+    (R, n), one row per window (of one MSM or of several) -> (L, R) x3.
+    The planes are `precomp`, or packed here; the points are padded to a
+    power of two and to COLS at the sink key; the rows go through in
+    tiles of `_window_tile`."""
     if precomp is None:
         precomp = bucket_kernel.pack_points(curve, *points)
     packed, is_inf = precomp
@@ -450,14 +455,22 @@ def _msm_scan(curve, points, scalar_limbs, precomp=None):
         extra = n_pad - n
         packed = torch.cat([packed, packed.new_zeros((extra, packed.shape[1]))])
         is_inf = torch.cat([is_inf, is_inf.new_ones((extra,))])
-        keys = torch.cat([keys, keys.new_full((extra, keys.shape[1]),
-                                              2 * SIGNED_NBUCKETS)])
-    n, W = keys.shape
-    wt = _window_tile(n, W)
-    keys_all = keys.T  # (W, n)
+        keys_all = torch.cat([keys_all, keys_all.new_full(
+            (keys_all.shape[0], extra), 2 * SIGNED_NBUCKETS)], dim=1)
+    R = keys_all.shape[0]
+    wt = _window_tile(n_pad, R)
     sums = [_window_sums_packed(curve, packed, is_inf, keys_all[w0:w0 + wt])
-            for w0 in range(0, W, wt)]
-    sums = tuple(torch.cat(parts, dim=1) for parts in zip(*sums))
+            for w0 in range(0, R, wt)]
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*sums))
+
+
+def _msm_scan(curve, points, scalar_limbs, precomp=None):
+    """The scan path (reference `pippenger.py:692-741`): signed sort keys
+    (recoded before padding), the window sums (`_scan_sums`), Horner.  G1
+    only; the affine input contract (z in {0, one})."""
+    W = scalar_limbs.shape[1]
+    sums = _scan_sums(curve, points, _signed_sort_keys(scalar_limbs).T,
+                      precomp)
     out = _horner_dispatch(curve, sums, W)  # (L, 1) x3
     return tuple(a[:, 0] for a in out)
 
@@ -507,6 +520,35 @@ def _msm_plain(curve, points, scalar_limbs):
                         dtype=scalar_limbs.dtype, device=scalar_limbs.device),
         ])
     return _msm_reference(curve, xs, ys, zs, scalar_limbs)
+
+
+def msm_many(curve, points, scalar_limbs, precomp=None):
+    """M MSMs over one point set (reference `pippenger.py:754-811`), the
+    shape of the EIP-7594 cell proofs: 128 quotient commitments over one
+    Lagrange setup.
+
+    scalar_limbs: (M, n, W) raw base-2^12 limbs; precomp as for `msm`.
+    Returns (X, Y, Z), each with a leading (M,) axis.  G1 on the card:
+    the (msm, window) pairs are M*W rows of one scan path, each scalar
+    recoded to signed digits, the rows' window sums (B2-B4 and B1)
+    reordered from batch-major (m*W + w) to window-major (w*M + m) and
+    all M combined in one launch of B5.  Otherwise one `msm` per m: the
+    plain MSM on CPU tensors, as the reference does off the pipeline, and
+    the fused pipeline for G2 on the card."""
+    xs, ys, zs = points
+    M, n, W = scalar_limbs.shape
+    if not (_use_pipeline(xs.device) and _use_scan_path(curve)):
+        outs = [msm(curve, points, scalar_limbs[m], precomp)
+                for m in range(M)]
+        return tuple(torch.stack([o[c] for o in outs]) for c in range(3))
+    keys = _signed_sort_keys(scalar_limbs.reshape(M * n, W))
+    keys_all = keys.reshape(M, n, W).transpose(1, 2).reshape(M * W, n)
+    sums = _scan_sums(curve, points, keys_all, precomp)  # (L, M*W)
+    L = sums[0].shape[0]
+    sums = tuple(s.reshape(L, M, W).transpose(1, 2).reshape(L, W * M)
+                 for s in sums)
+    out = _horner_dispatch(curve, sums, W)  # (L, M) x3
+    return tuple(a.T for a in out)
 
 
 def scalars_to_limbs(spec, scalars) -> np.ndarray:
@@ -562,3 +604,13 @@ def unpack_limbs(packed: torch.Tensor, W: int) -> torch.Tensor:
             v = v | (pk[..., w + 1] << (32 - sh))
         cols.append(v & (NBUCKETS - 1))
     return torch.stack(cols, dim=-1).to(torch.int32)
+
+
+def msm_host_input(curve, affine_points, scalars):
+    """Host AffinePoints and int scalars -> an MSM on the curve's device
+    -> a host AffinePoint (reference `pippenger.py:874-881`)."""
+    P = curve.encode_points(affine_points)
+    S = torch.as_tensor(scalars_to_limbs(curve.spec, scalars),
+                        device=curve.device)
+    out = msm(curve, P, S)
+    return curve.decode_points(tuple(a[None] for a in out))[0]

@@ -12,7 +12,9 @@ u^2 = -5), and for B1-B6 at L = 64 (BW6-761: G1, whose 3b = -3 B2 takes
 as a negated small integer, and G2, both over Fp; B6's blocks of 64
 rows there); B4 against the plain version of its split order; B2 and B5
 on edge inputs in both forms of their products by b3.  The MSMs that run on them (the scan path for G1, the fused
-pipeline for G2) are held against a host sum.  B8, the point-add experiment's four designs of the BN254 G1 add
+pipeline for G2) are held against a host sum, `msm_many` and the
+EIP-7594 cell proofs against their plain route on the card.  B8, the
+point-add experiment's four designs of the BN254 G1 add
 (ec/addk_exp.py), is held against its plain versions and, for the three
 that compute the canonical add, against B1.
 This file imports nothing of the JAX package; on a machine without JAX
@@ -429,6 +431,58 @@ def test_scan_msm_launches_every_kernel(dev):
     for i, b in enumerate(base):
         want = want.add(b.mul(sum(scalars[i::8]) % spec.r))
     assert got == want
+
+
+@pytest.mark.parametrize("name", ["bn254_g1", "bls381_g1"])
+def test_msm_many_matches_plain_route(dev, name, monkeypatch):
+    """`msm_many` of M = 3 scalar rows over one G1 set on the card: the
+    scan route (the M*W window rows through B2-B4 and B1, one B5 combine
+    of all M) equals the plain route (one plain MSM per m) on the same
+    CUDA tensors, and the host sums."""
+    spec = getattr(C, name)
+    dc = get_device_curve(spec, dev)
+    r = random.Random(11)
+    n, M = 5000, 3
+    base = [spec.gen.mul(r.randrange(1, spec.r)) for _ in range(7)]
+    base.append(spec.infinity())
+    rows = [[r.randrange(spec.r) for _ in range(n)] for _ in range(M)]
+    rows[1][:3] = [0, 1, spec.r - 1]
+    P = dc.encode_points([base[i % 8] for i in range(n)])
+    S = torch.stack([torch.as_tensor(scalars_to_limbs(spec, s), device=dev)
+                     for s in rows])
+    b5 = K.B5.at(dc.df.L)
+    before = b5.launches
+    got = dc.decode_points(pp.msm_many(dc, P, S))
+    # the reduce's combine, then the one Horner of all M windows
+    assert b5.launches - before == 2
+    monkeypatch.setattr(pp, "_use_pipeline", lambda device: False)
+    assert dc.decode_points(pp.msm_many(dc, P, S)) == got
+    for m, s in enumerate(rows):
+        want = spec.infinity()
+        for i, b in enumerate(base):
+            want = want.add(b.mul(sum(s[i::8]) % spec.r))
+        assert got[m] == want
+
+
+def test_cell_proofs_match_plain_route_and_host(dev, monkeypatch):
+    """All 128 cell proofs of a random blob on the card: cells 0, 64 and
+    127 equal the same cells by the plain MSM route on the card and the
+    host path's `compute_cell_proof`, and one verifies by the pairing."""
+    from davinci_tpu_torch.blobs import cells
+    from davinci_tpu_torch.blobs.kzg import blob_to_commitment
+
+    rng = random.Random(0x7594)
+    blob = cells.Blob([rng.randrange(F.BLS12_381_R)
+                       for _ in range(cells.BLOB_CELLS)])
+    ids = [0, 64, 127]
+    proofs = cells.compute_cell_proofs_device(blob, device=dev)
+    assert len(proofs) == cells.CELLS_PER_BLOB
+    got = [proofs[i] for i in ids]
+    assert got == [cells.compute_cell_proof(blob, i) for i in ids]
+    cell = cells.compute_cells(blob)[64]
+    assert cells.verify_cell_proof(blob_to_commitment(blob), 64, cell, got[1])
+    monkeypatch.setattr(pp, "_use_pipeline", lambda device: False)
+    assert cells.compute_cell_proofs_device(blob, ids, device=dev) == got
 
 
 # -- B6, the Montgomery product ------------------------------------------------

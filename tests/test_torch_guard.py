@@ -7,6 +7,9 @@
   the reference's host functions; `groth16/serialize.py` and
   `circuits/artifacts.py` keep it but for the functions that stream
   `pk.bin` (`PARTIAL`).
+* The node's surface (the API, workers, services, CLI, config, DKG,
+  metadata, BLAKE-512) is copied whole; `blobs/cells.py` keeps the
+  reference's host functions and runs its batched proofs on torch.
 * Importing the package pulls in neither `jax` nor `davinci_tpu`: the
   machine with the GPU has no JAX.
 """
@@ -43,6 +46,8 @@ VERBATIM = [
     "web3/encoding.py", "web3/rpc.py", "web3/txmanager.py", "web3/abi.py",
     "web3/blobtx.py", "web3/contracts.py", "web3/fakenode.py",
     "web3/solidity_export.py", "web3/__init__.py",
+    "hash/blake512.py", "config.py", "metadata.py", "dkg.py", "workers.py",
+    "services.py", "webapp.py", "api.py", "cli.py",
 ]
 
 
@@ -82,11 +87,13 @@ def test_kzg_host_functions_keep_the_reference_text(name):
 
 # modules whose functions and methods keep the reference's text but for
 # those named: the store writes and reads pk.bin a section at a time
-# (`write_pk`, `read_pk`), which the byte functions wrap
+# (`write_pk`, `read_pk`), which the byte functions wrap; the cell proofs'
+# batched device path runs on torch
 PARTIAL = {
     "groth16/serialize.py": {"pk_to_bytes", "pk_from_bytes", "write_pk",
                              "read_pk"},
     "circuits/artifacts.py": {"ArtifactStore._load_or_setup_disk"},
+    "blobs/cells.py": {"compute_cell_proofs_device"},
 }
 
 
@@ -116,6 +123,15 @@ def test_partial_copy_keeps_the_reference_text(rel):
         if name not in changed:
             assert port[name] == text.replace("davinci_tpu",
                                               "davinci_tpu_torch"), name
+
+
+def test_msm_package_names_the_batched_entry_points():
+    """The port's `msm/__init__.py` exports what the reference's does but
+    `sharded_msm` (multi-card, not ported yet)."""
+    tree = ast.parse((PORT / "msm/__init__.py").read_text())
+    names = {alias.name for node in tree.body
+             if isinstance(node, ast.ImportFrom) for alias in node.names}
+    assert {"msm", "msm_many", "msm_host_input"} <= names
 
 
 def test_poseidon_is_the_host_half_of_its_reference():
