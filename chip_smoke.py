@@ -177,6 +177,23 @@ Phases, one line of output each (any failure raises and exits non-zero):
      set up again, and the results are proved on the card.
      `circuit-compile --export-only` over the store: one `.sol` per BN254
      key (c4's and c5's), named by its structure hash.
+  15. The last modules of the port, on phase 5's c1 key and proof: [15a]
+     `get_device_poseidon(t)` on the card at t = 3 with 2^16 rows (one
+     level of a 64k-leaf tree), t = 17 with 4,096 (16-field ballots), and
+     t = 2 and t = 5 with 1,024: rows 0, the last and 254 sampled ones
+     equal to the host `poseidon_hash`, with the hashes a second, B6's
+     launches a call and peak device memory.  [15b] A world-size-1 NCCL
+     group in this process (`parallel.distributed_init` over a file
+     store under build/, `get_mesh`): `sharded_ntt` / `sharded_intt` at
+     2^17 limb-equal to `ntt` / `intt`, `sharded_msm` of phase 4's 2^17
+     G1 case and of a 2^14-point BN254 G2 set equal to `msm` and to their
+     host oracles, then c1 proved with `Groth16.set_mesh` (r = 7, s = 11),
+     equal in a, b and c to phase 5's proof, verified and refused for a
+     tampered public input, its seconds beside phase 5's steady prove and
+     the launches of B1-B7 and B5's G2 build (each above 0); the group is
+     destroyed after.  One card cannot hold an NCCL group of two ranks, so
+     the collectives are trivial here; tests/test_torch_sharded.py holds
+     the multi-rank logic over gloo at D = 2 and 4.
 A line before each phase gives the seconds since the run began.
 
 The line before the last is a JSON object with one entry per kernel (B8:
@@ -1399,6 +1416,7 @@ def groth16_phase(dev, cs, public, kernels, stages):
     check(1 not in g2.sizes, "the prove made G2 adds of one point")
     out["horner_g2_args"] = cap.args
     out["proof"], out["vk"] = proof, vk  # c2's inner proof (phase 10)
+    out["key"] = (g16, pk, cs, public)  # phase 15's sharded prove
     t0 = time.perf_counter()
     check(g16.verify(vk, proof, public), "proof does not verify")
     out["verify_s"] = time.perf_counter() - t0
@@ -3199,6 +3217,127 @@ def c4_only(n_votes):
     return 0
 
 
+POSEIDON_ROWS = ((3, 1 << 16), (17, 4096), (2, 1024), (5, 1024))
+
+
+def poseidon_phase(dev):
+    """[15a] DevicePoseidon on the card at each (t, rows) of POSEIDON_ROWS:
+    rows 0, the last and 254 sampled ones against the host hash."""
+    import torch
+
+    from davinci_tpu_torch import kernels as K
+    from davinci_tpu_torch.hash import get_device_poseidon, poseidon_hash
+
+    rng = random.Random(SEED + 15)
+    out = {}
+    for t, n in POSEIDON_ROWS:
+        dp = get_device_poseidon(t, device=dev)
+        spec = dp.spec
+        rows = [[rng.randrange(spec.p) for _ in range(t - 1)] for _ in range(n)]
+        arr = torch.as_tensor(spec.batch_to_limbs(
+            [v * spec.r % spec.p for row in rows for v in row]),
+            device=dev).reshape(n, t - 1, dp.df.L)
+        dp.hash(arr[:2])  # the constants' first use
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.B6.launches = 0
+        t0 = time.perf_counter()
+        got = dp.hash(arr)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = K.B6.launches
+        check(launches > 0, f"Poseidon t={t} did not launch B6")
+        hashes = dp.df.decode(got)
+        sample = [0, n - 1] + rng.sample(range(1, n - 1), 254)
+        check(all(hashes[i] == poseidon_hash(rows[i]) for i in sample),
+              f"Poseidon t={t} differs from the host hash")
+        out[f"t{t}"] = {"rows": n, "s": secs, "hashes_per_s": n / secs,
+                        "b6_launches": launches, "checked_rows": len(sample),
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+        say(f"[15a] Poseidon t={t}: {n} rows in {secs:.4f} s "
+            f"({n / secs:.0f} hashes/s), B6 launches {launches}, "
+            f"{len(sample)} sampled rows equal to poseidon_hash")
+    return out
+
+
+def mesh_phase(dev, c1, inner, case4, kernels):
+    """[15b] The multi-card path on a world-size-1 NCCL group: sharded
+    NTT, sharded MSMs (G1 and G2), c1 proved with set_mesh."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from davinci_tpu_torch import curves as C
+    from davinci_tpu_torch import fields as F
+    from davinci_tpu_torch.msm import msm, sharded_msm
+    from davinci_tpu_torch.ntt import get_device_ntt
+    from davinci_tpu_torch.parallel import distributed_init, get_mesh
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    store = Path(tempfile.mkdtemp(prefix="nccl-", dir=ROOT / "build"))
+    out = {}
+    distributed_init(f"file://{store / 'store'}", 1, 0, backend="nccl",
+                     timeout=120)
+    try:
+        mesh = get_mesh("shard", device=dev)
+        ntt = get_device_ntt(F.bn254_fr, dev)
+        x = random_limbs(ntt.df, 1 << 17,
+                         torch.Generator().manual_seed(SEED + 15))
+        for name, fn, ref in (("sharded_ntt", ntt.sharded_ntt, ntt.ntt),
+                              ("sharded_intt", ntt.sharded_intt, ntt.intt)):
+            check(torch.equal(fn(x, mesh), ref(x)), f"{name} differs")
+        out["ntt_equal"] = True
+
+        g2_case = tiled_msm_case(dev, np.random.default_rng(SEED + 15),
+                                 n=1 << 14, spec=C.bn254_g2)
+        for tag, (dc, pts, S, want) in (("g1", case4), ("g2", g2_case)):
+            t0 = time.perf_counter()
+            got = sharded_msm(dc, pts, S, mesh)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            dec = lambda p: dc.decode_points(tuple(a[None] for a in p))[0]
+            check(dec(got) == want == dec(msm(dc, pts, S)),
+                  f"sharded {tag} MSM differs from msm and the oracle")
+            out[f"msm_{tag}"] = {"n": S.shape[0], "s": secs}
+
+        g16, pk, cs, public = inner["key"]
+        g16.set_mesh(mesh)
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            proof = g16.prove(pk, cs, r_rand=7, s_rand=11)
+        finally:
+            g16.set_mesh(None)
+        out["prove_s"] = time.perf_counter() - t0
+        out["steady_prove_s"] = c1["prove_s"]
+        out["launches"] = {k.name: k.launches for k in kernels}
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        for k in kernels:
+            check(k.launches > 0, f"{k.name} was not launched by the "
+                  "sharded prove")
+        want = inner["proof"]
+        check((proof.a, proof.b, proof.c) == (want.a, want.b, want.c),
+              "the sharded proof differs from phase 5's")
+        check(g16.verify(inner["vk"], proof, public),
+              "the sharded proof does not verify")
+        check(not g16.verify(inner["vk"], proof, bumped(public, 0)),
+              "the sharded proof verifies a tampered public input")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    say(f"[15b] world-size-1 NCCL: sharded NTT/iNTT at 2^17 equal, sharded "
+        f"MSMs {out['msm_g1']} / {out['msm_g2']} equal; c1 with set_mesh in "
+        f"{out['prove_s']:.3f} s (steady prove {out['steady_prove_s']:.3f} "
+        f"s), equal to phase 5's proof, verified, tampered refused; "
+        f"launches {out['launches']}, peak device memory "
+        f"{out['peak_mem_gb']:.2f} GiB")
+    return out
+
+
 def c1_phase(dev, stages, kernels):
     """Phase 5: c1 built, set up, proved and verified on the card.
     Returns (its summary, c2's inner inputs: the proof with fixed
@@ -3211,7 +3350,7 @@ def c1_phase(dev, stages, kernels):
     horner_g2 = c1.pop("horner_g2_args")
     inner = {"proof": c1.pop("proof"), "vk": c1.pop("vk"),
              "inputs_hash": public[0], "vote_id": bw.vote_id,
-             "ballot": bw, "priv": priv}
+             "ballot": bw, "priv": priv, "key": c1.pop("key")}
     say(f"[5] c1 summary {json.dumps(c1)}")
     return c1, inner, horner_g2
 
@@ -3614,7 +3753,7 @@ def main(argv) -> int:
     say(f"[4b] scan-path G1 MSM equal to the host oracle: {scan}")
     say(f"[4b] edge-case G1 MSM through msm: {edge_msm_phase(dev)}")
     res.update(scan_kernels_phase(cap.calls, regs))
-    del case, cap
+    del cap  # phase 15 takes the case again
 
     stages = StageTimes()
     log.init()
@@ -3657,6 +3796,10 @@ def main(argv) -> int:
     finally:
         shutil.rmtree(root)
     say(f"[14] summary {json.dumps(cli_out)}")
+    lap("[15]", t_run)
+    last = {"poseidon": poseidon_phase(dev),
+            "mesh": mesh_phase(dev, c1, inner, case, kernels)}
+    say(f"[15] summary {json.dumps(last)}")
 
     say(f"whole run: {time.perf_counter() - t_run:.1f} s")
     # every kernel is on the node's path (phases 13 and 14) but B8's,

@@ -24,6 +24,24 @@ from __future__ import annotations
 from davinci_tpu_torch.groth16.r1cs import ConstraintSystem, LinComb
 
 
+def batch_inverse(xs, p: int) -> list:
+    """[pow(x, -1, p) for x in xs], xs reduced mod p, by one inversion and
+    3(n - 1) products (Montgomery's trick): a committed prove's re-solve
+    inverts one value per checked chunk and per table entry.  A zero
+    raises pow's ValueError."""
+    prefix = [1] * len(xs)
+    acc = 1
+    for i, x in enumerate(xs):
+        prefix[i] = acc
+        acc = acc * x % p
+    inv = pow(acc, -1, p)
+    out = [0] * len(xs)
+    for i in range(len(xs) - 1, -1, -1):
+        out[i] = prefix[i] * inv % p
+        inv = inv * xs[i] % p
+    return out
+
+
 class LookupRangeChecker:
     """Deferred range checks resolved against a [0, 2^table_bits) table at
     finalize().  One instance per ConstraintSystem; finalize() must run
@@ -148,8 +166,9 @@ class LookupRangeChecker:
         g = challenge_value % p
         cs.values[self._gamma_idx] = g
         vals = [v.value for v in self._checked]
-        invs = [pow((g - v) % p, -1, p) for v in vals]
-        table_invs = [pow((g - j) % p, -1, p) for j in range(n_table)]
+        invs = batch_inverse([(g - v) % p for v in vals]
+                             + [(g - j) % p for j in range(n_table)], p)
+        table_invs = invs[len(vals):]
         # finalize() allocation order: one inv per checked value, then per
         # table entry an inv and a product
         for idx, iv in zip(self._inv_idx[: len(vals)], invs):

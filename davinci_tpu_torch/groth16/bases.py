@@ -51,6 +51,12 @@ class EncodedBases:
             self._packed[device] = pack_points(curve, *self.device(device))
         return self._packed[device]
 
+    def drop_device(self):
+        """Forget the uploads and plane packs on every device: the next
+        `device(...)` uploads again."""
+        self._dev = {}
+        self._packed = {}
+
     def __eq__(self, other):
         if not isinstance(other, EncodedBases):
             return NotImplemented
@@ -65,6 +71,13 @@ class EncodedBases:
         shape = (0, 2, dc.df.L) if dc.ops.coord_ndim == 2 else (0, dc.df.L)
         z = np.zeros(shape, np.int32)
         return cls(z, z, z)
+
+    @classmethod
+    def from_host_points(cls, dc, pts) -> "EncodedBases":
+        """Host AffinePoints -> encoded bases (slow path: tests/small keys)."""
+        if not pts:
+            return cls.empty(dc)
+        return cls.from_device(dc.encode_points(pts))
 
     @classmethod
     def from_device(cls, arrs) -> "EncodedBases":

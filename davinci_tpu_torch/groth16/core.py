@@ -1,4 +1,5 @@
-"""Groth16 setup / prove / verify on one device.  Counterpart of
+"""Groth16 setup / prove / verify on one device or, after `set_mesh`,
+over the ranks of a mesh axis.  Counterpart of
 `davinci_tpu/groth16/core.py`, with its commitment extension: committed
 wires live on the gamma basis, exposed through a commitment D in the
 proof with a proof of knowledge, and a Fiat-Shamir challenge wire bound
@@ -13,6 +14,12 @@ reference takes on its accelerator); on a CPU device it takes the
 reference's CPU route, a batched double-and-add.  Verification is a host
 pairing check.  The commitment D and its proof of knowledge are two
 more G1 MSMs over the key's commitment bases.
+
+With a mesh set (`set_mesh`, a `parallel.get_mesh` mesh), every rank
+calls `prove` on the same key and witness: the quotient's transforms run
+as the four-step `sharded_ntt` on each rank's block and h is all-gathered
+after them, and every proving-key MSM runs as `sharded_msm`.  The proof
+is the single-device one on every rank.
 """
 
 from __future__ import annotations
@@ -45,6 +52,12 @@ from davinci_tpu_torch.msm.pippenger import (
 )
 from davinci_tpu_torch.ntt import get_device_ntt
 from davinci_tpu_torch.pairing import PAIRINGS
+from davinci_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    axis_size,
+    broadcast_objects,
+    shard_batch,
+)
 
 
 @dataclass(eq=False)
@@ -183,6 +196,18 @@ class Groth16:
         self.ntt = get_device_ntt(self.fr, self.device)
         self.r = self.fr.p
         self._tables = {}
+        # multi-card proving: with a mesh set, proving-key MSMs run as
+        # sharded_msm and the quotient's transforms as the four-step
+        # collective transform
+        self.mesh = None
+        self.mesh_axis = "shard"
+
+    def set_mesh(self, mesh, axis_name: str = "shard"):
+        """Distribute proving over a mesh axis (a `torch.distributed`
+        DeviceMesh; None for one device).  Every rank proves the same
+        witness; the proofs equal the single-device ones."""
+        self.mesh = mesh
+        self.mesh_axis = axis_name
 
     # ------------------------------------------------------------------ setup
 
@@ -372,6 +397,8 @@ class Groth16:
         rng = _random.Random()
         rr = rng.randrange(r) if r_rand is None else r_rand
         ss = rng.randrange(r) if s_rand is None else s_rand
+        if self.mesh is not None:  # every rank blinds alike: one proof
+            rr, ss = broadcast_objects(self.mesh, [rr, ss], self.mesh_axis)
 
         z = cs.witness()
         N = 1 << pk.domain_log
@@ -397,16 +424,17 @@ class Groth16:
         # --- quotient polynomial h ------------------------------------------
         with log.info_time("groth16.quotient_ntt", domain=N):
             g = self.fr.multiplicative_generator
+            coset_fwd, inv, coset_inv, gather = self._quotient_transforms(N)
             # per-polynomial transforms: peak memory ~2 (N, L) tensors
-            cosets = [self.ntt.coset_ntt(self.ntt.intt(v)) for v in abc]
+            cosets = [coset_fwd(inv(v)) for v in abc]
             del abc
             num = df.sub(df.mul(cosets[0], cosets[1]), cosets[2])
             del cosets
             zc_inv = pow((pow(g, N, r) - 1) % r, -1, r)
-            h_coeffs = self.ntt.coset_intt(df.mul(num, df.encode_scalar(zc_inv)))
+            h_coeffs = coset_inv(df.mul(num, df.encode_scalar(zc_inv)))
             del num
             # raw base-2^12 limbs ARE the MSM scalar format
-            h_raw = df.from_mont(h_coeffs)
+            h_raw = gather(df.from_mont(h_coeffs))
             del h_coeffs
             if bool((h_raw[N - 1] != 0).any()):
                 raise ProveError("quotient degree overflow")
@@ -440,6 +468,27 @@ class Groth16:
         )
         return Proof(a=A, b=B2, c=Cpt)
 
+    def _quotient_transforms(self, N: int):
+        """(coset_fwd, inv, coset_inv, gather) for the quotient at domain
+        N.  With a mesh of D ranks and D^2 dividing N (the four-step
+        decomposition's need), the transforms are the sharded ones: each
+        takes and gives this rank's block, `inv` cuts a full vector to it
+        first, and `gather` makes h whole again on every rank.  Otherwise
+        the single-device transforms, and `gather` is the identity."""
+        ntt, mesh, axis = self.ntt, self.mesh, self.mesh_axis
+        if mesh is None or N % axis_size(mesh, axis) ** 2:
+            return ntt.coset_ntt, ntt.intt, ntt.coset_intt, lambda h: h
+        df = ntt.df
+        g = self.fr.multiplicative_generator
+        gp = shard_batch(mesh, ntt.power_table(g, N), axis)
+        gpi = shard_batch(mesh, ntt.power_table(pow(g, -1, self.r), N), axis)
+        return (
+            lambda c: ntt.sharded_ntt(df.mul(c, gp), mesh, axis),
+            lambda e: ntt.sharded_intt(shard_batch(mesh, e, axis), mesh, axis),
+            lambda e: df.mul(ntt.sharded_intt(e, mesh, axis), gpi),
+            lambda h: all_gather_rows(mesh, h, axis),
+        )
+
     def prove_committed(self, pk: ProvingKey, build_fn, rng=None,
                         r_rand=None, s_rand=None) -> CommittedProof:
         """Prove a circuit that uses cs.commit().
@@ -452,6 +501,8 @@ class Groth16:
         not depend on the witness."""
         rng = rng or _random.Random()
         blind = rng.randrange(self.r)
+        if self.mesh is not None:  # every rank commits to one blind
+            [blind] = broadcast_objects(self.mesh, [blind], self.mesh_axis)
         cs0 = build_fn(0, blind)
         committed_vals = [cs0.values[i] for i in cs0.committed]
         D, pok = self._commit(pk, committed_vals)
@@ -479,7 +530,10 @@ class Groth16:
             raise ProveError(
                 "prove_committed_reuse needs a circuit with a _refinalize hook")
         rng = rng or _random.Random()
-        cs.values[cs.committed[-1]] = rng.randrange(self.r)  # blind wire
+        blind = rng.randrange(self.r)
+        if self.mesh is not None:  # every rank commits to one blind
+            [blind] = broadcast_objects(self.mesh, [blind], self.mesh_axis)
+        cs.values[cs.committed[-1]] = blind  # blind wire
         D, pok = self._commit(pk, [cs.values[i] for i in cs.committed])
         challenge = self.commitment_challenge(D)
         with log.info_time("groth16.refinalize"):
@@ -556,6 +610,8 @@ class Groth16:
         if n == 0 or not bool(S_full.any()):
             return gspec.infinity()
         seg = self.MSM_SEGMENT_G2 if dc.ops.coord_ndim == 2 else self.MSM_SEGMENT
+        if self.mesh is not None:
+            return self._msm_enc_sharded(dc, gspec, bases, S_full, seg)
         if n <= seg:
             # fixed bases: the scan path's plane pack is made once per key
             precomp = (
@@ -580,6 +636,25 @@ class Groth16:
             out = msm(dc, tuple(a[ofs:hi] for a in arrs), S)
             out = tuple(a[None] for a in out)
             # fold segment partials on the device; decode once at the end
+            total = out if total is None else dc.add(total, out)
+        if total is None:
+            return gspec.infinity()
+        return dc.decode_points(total)[0]
+
+    def _msm_enc_sharded(self, dc, gspec, bases, S_full, seg):
+        """Mesh-sharded MSM (each rank uploads its block of the bases from
+        the host, the bucket arrays all-gathered and merged), segmented
+        for memory; the segments' partials fold on the device."""
+        n = len(bases)
+        total = None
+        for ofs in range(0, n, seg):
+            hi = min(ofs + seg, n)
+            S = S_full[ofs:hi]
+            if not bool(S.any()):
+                continue
+            arrs = tuple(a[ofs:hi] for a in (bases.x, bases.y, bases.z))
+            out = pippenger.sharded_msm(dc, arrs, S, self.mesh, self.mesh_axis)
+            out = tuple(a[None] for a in out)
             total = out if total is None else dc.add(total, out)
         if total is None:
             return gspec.infinity()

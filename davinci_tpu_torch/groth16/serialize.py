@@ -368,9 +368,12 @@ class _LoadedRefinalize:
         assert challenge_value == 0 or challenge_value >= n_table
         g = challenge_value % p
         cs.values[self._gamma_idx] = g
-        invs = [pow((g - v) % p, -1, p) for v in self._checked_vals]
-        table_invs = [pow((g - j) % p, -1, p) for j in range(n_table)]
+        from davinci_tpu_torch.circuits.lookup import batch_inverse
+
         nv = len(self._checked_vals)
+        invs = batch_inverse([(g - v) % p for v in self._checked_vals]
+                             + [(g - j) % p for j in range(n_table)], p)
+        table_invs = invs[nv:]
         for idx, iv in zip(self._inv_idx[:nv], invs):
             cs.values[idx] = iv
         for j in range(n_table):

@@ -1,3 +1,13 @@
-from davinci_tpu_torch.hash.poseidon import multi_poseidon, poseidon_hash
+from davinci_tpu_torch.hash.poseidon import (
+    DevicePoseidon,
+    get_device_poseidon,
+    poseidon_hash,
+    multi_poseidon,
+)
 
-__all__ = ["poseidon_hash", "multi_poseidon"]
+__all__ = [
+    "DevicePoseidon",
+    "get_device_poseidon",
+    "poseidon_hash",
+    "multi_poseidon",
+]

@@ -1,17 +1,27 @@
-"""Poseidon hash (circomlib/iden3-compatible) -- the host oracle.
+"""Poseidon hash (circomlib/iden3-compatible): the host oracle and the
+batched device permutation.  Counterpart of `davinci_tpu/hash/poseidon.py`.
 
-The host half of `davinci_tpu/hash/poseidon.py`: the Grain LFSR constant
+The host half is the reference's text: the Grain LFSR constant
 generator, the reference permutation, `poseidon_hash` and
 `multi_poseidon`, validated at import against the published iden3
-vectors.  The batched device permutation (`DevicePoseidon`) is not part
-of this package yet.
+vectors.  The device half, `DevicePoseidon`, runs the permutation on a
+batch of states as (..., t, L) Montgomery limb tensors: a Python loop
+over the rounds, every field product on `DeviceField.mul` (kernel B6 on
+CUDA tensors), the MDS mix one batched product (t, t, L) x (..., 1, t, L)
+followed by an integer column sum and a bounded conditional-subtract
+reduction (`_sum_mod`).
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
+import torch
+
 from davinci_tpu_torch import fields as F
+from davinci_tpu_torch.ff import get_device_field
+from davinci_tpu_torch.ff.mod import carry_fix
 
 R_F = 8
 # circomlib partial-round counts for t = 2..17
@@ -150,3 +160,106 @@ _V1 = 18586133768512220936620570745912940619677854269274689475585506675881198879
 _V2 = 7853200120776062878684798364095072458815029376092732009249414926327459813530
 assert poseidon_hash([1]) == _V1, "Poseidon t=2 does not match iden3 vector"
 assert poseidon_hash([1, 2]) == _V2, "Poseidon t=3 does not match iden3 vector"
+
+
+# ---------------------------------------------------------------------------
+# Device batched Poseidon
+# ---------------------------------------------------------------------------
+
+
+class DevicePoseidon:
+    """Batched Poseidon permutation for a fixed arity t over BN254 Fr (or
+    another field spec) on one device.
+
+    hash(x): x is (batch, t-1, L) Montgomery limbs -> (batch, L).
+    """
+
+    def __init__(self, t: int, spec=F.bn254_fr, device="cuda"):
+        self.t = t
+        self.spec = spec
+        self.device = torch.device(device)
+        self.df = get_device_field(spec, self.device)
+        L = self.df.L
+        C, M = poseidon_constants(t, spec.p)
+        r_p = N_ROUNDS_P[t - 2]
+        self.n_rounds = R_F + r_p
+        mont = lambda v: v * spec.r % spec.p
+        self.C = self._t(spec.batch_to_limbs([mont(c) for c in C])).reshape(
+            self.n_rounds, t, L)
+        self.M = self._t(spec.batch_to_limbs(
+            [mont(M[i][j]) for i in range(t) for j in range(t)])).reshape(t, t, L)
+        # full-round flags
+        half = R_F // 2
+        self.full_flags = [1] * half + [0] * r_p + [1] * half
+        # p << j multiples (L+1 limbs) for the bounded sum reduction
+        ext = np.zeros((6, L + 1), np.int32)
+        for j in range(6):
+            v = spec.p << j
+            for i in range(L + 1):
+                ext[j, i] = v & 0xFFF
+                v >>= 12
+        self._p_mults = self._t(ext)
+
+    def _t(self, arr) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(arr, np.int32), device=self.device)
+
+    def _sum_mod(self, terms: torch.Tensor) -> torch.Tensor:
+        """Sum over axis -2 of Montgomery limb values (k <= 17 terms),
+        reduced mod p: integer column sum + carry + descending conditional
+        subtracts of 2^j * p (branchless: borrow read off an extra limb)."""
+        L = self.df.L
+        k = terms.shape[-2]
+        cols = terms.sum(dim=-2, dtype=torch.int32)
+        x = carry_fix(cols, L + 1)
+        jtop = max(0, (k - 1).bit_length() - 1) + 1  # 2^jtop >= k
+        for jj in range(jtop, -1, -1):
+            d = carry_fix(x - self._p_mults[jj], L + 2)
+            borrow = d[..., L + 1] != 0
+            x = torch.where(borrow.unsqueeze(-1), x, d[..., : L + 1])
+        return x[..., :L]
+
+    def _sbox(self, s: torch.Tensor) -> torch.Tensor:
+        df = self.df
+        return df.mul(df.square(df.square(s)), s)
+
+    def permute(self, state: torch.Tensor) -> torch.Tensor:
+        """state: (..., t, L) Montgomery -> permuted state.  A partial
+        round raises element 0 alone to the fifth power; the reference
+        raises all t and keeps element 0, the same limbs."""
+        df = self.df
+        s = state
+        for c, full in zip(self.C, self.full_flags):
+            s = df.add(s, c)
+            if full:
+                s = self._sbox(s)
+            else:
+                s = torch.cat([self._sbox(s[..., :1, :]), s[..., 1:, :]],
+                              dim=-2)
+            # mix: out[i] = sum_j M[i][j] * s[j]
+            s = self._sum_mod(df.mul(self.M, s[..., None, :, :]))
+        return s
+
+    def hash(self, inputs: torch.Tensor) -> torch.Tensor:
+        """inputs: (..., t-1, L) Montgomery -> (..., L)."""
+        zero = inputs.new_zeros(inputs.shape[:-2] + (1, self.df.L))
+        state = torch.cat([zero, inputs], dim=-2)
+        return self.permute(state)[..., 0, :]
+
+    # host boundary helpers
+    def hash_ints(self, rows: list[list[int]]) -> list[int]:
+        spec = self.spec
+        flat = [v * spec.r % spec.p for row in rows for v in row]
+        arr = self._t(spec.batch_to_limbs(flat)).reshape(
+            len(rows), self.t - 1, self.df.L)
+        return self.df.decode(self.hash(arr))
+
+
+def get_device_poseidon(t: int, spec=F.bn254_fr, device="cuda") -> DevicePoseidon:
+    """The DevicePoseidon of arity t - 1 on `device`, made once per
+    (t, spec, device)."""
+    return _device_poseidon(t, spec, torch.device(device))
+
+
+@functools.cache
+def _device_poseidon(t, spec, device) -> DevicePoseidon:
+    return DevicePoseidon(t, spec, device)

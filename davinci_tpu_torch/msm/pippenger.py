@@ -25,7 +25,10 @@ the reference does:
 `msm_many` runs M MSMs of one G1 point set on the card as M*W rows of
 one scan path (the EIP-7594 cell proofs' 128 commitments over the blob
 setup), and one `msm` per m otherwise; `msm_host_input` wraps `msm` for
-host points and int scalars.
+host points and int scalars.  `sharded_msm` splits one MSM over the
+ranks of a mesh axis (`parallel/mesh.py`): each rank takes its block of
+the points through the same routes, the bucket arrays (or, plain, the
+partial points) are all-gathered and folded with point adds.
 
 The tests drive `_msm_fused` and `_msm_scan` directly on the CPU, where
 every kernel wrapper runs its plain version.
@@ -39,6 +42,11 @@ import torch
 from davinci_tpu_torch.ec import cuda_add
 from davinci_tpu_torch.fields import LIMB_BITS
 from davinci_tpu_torch.msm import bucket_kernel
+from davinci_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    axis_rank,
+    axis_size,
+)
 
 WINDOW_BITS = LIMB_BITS
 NBUCKETS = 1 << WINDOW_BITS  # bucket 0 contributes nothing (b * S_0, b=0)
@@ -383,21 +391,30 @@ def _horner_dispatch(curve, sums, W: int):
         curve, tuple(s.contiguous() for s in sums), W, WINDOW_BITS)
 
 
-def _window_sums_packed(curve, packed, is_inf, keys_all):
+def _window_sums_packed(curve, packed, is_inf, keys_all, fold=None):
     """Scan-path window sums of a window tile, (L, Wt) x3: the bucket scan
-    over pre-packed planes, the leftover merge and the reduce."""
+    over pre-packed planes, the leftover merge, `fold` (the sharded MSM's
+    sum over the ranks) and the reduce."""
     buckets, acc, acc_key = bucket_kernel.bucket_accumulate_packed(
         curve, packed, is_inf, keys_all, COLS, SIGNED_NBUCKETS, signed=True)
     buckets = _merge_leftovers_t(curve, buckets, acc, acc_key)
+    if fold is not None:
+        buckets = fold(buckets, lambda p, q: _t_add(curve, p, q))
     return _bucket_reduce_t(curve, buckets, shifted=True)
+
+
+def _padded_size(n: int, multiple: int) -> int:
+    """The pipelines' row count for n points: a power of two, at least
+    and a multiple of `multiple`."""
+    n_pad = max(multiple, 1 << (n - 1).bit_length() if n > 1 else multiple)
+    return -(-n_pad // multiple) * multiple
 
 
 def _pad_inputs(curve, xs, ys, zs, scalar_limbs, multiple: int | None = None):
     if multiple is None:
         multiple = COLS  # module attribute: tests may shrink it
     n = xs.shape[0]
-    n_pad = max(multiple, 1 << (n - 1).bit_length() if n > 1 else multiple)
-    n_pad = -(-n_pad // multiple) * multiple
+    n_pad = _padded_size(n, multiple)
     if n_pad != n:
         extra = n_pad - n
         ident = curve.identity((extra,))
@@ -422,8 +439,9 @@ def _msm_reference(curve, xs, ys, zs, scalar_limbs):
     return tuple(a[0] for a in acc)
 
 
-def _msm_fused(curve, points, scalar_limbs):
-    """The bucket pipeline (reference `pippenger.py:742-751`)."""
+def _msm_fused(curve, points, scalar_limbs, fold=None):
+    """The bucket pipeline (reference `pippenger.py:742-751`); `fold` as
+    in `_window_sums_packed`."""
     xs, ys, zs = points
     xs, ys, zs, scalar_limbs = _pad_inputs(curve, xs, ys, zs, scalar_limbs)
     n, W = scalar_limbs.shape
@@ -433,24 +451,25 @@ def _msm_fused(curve, points, scalar_limbs):
     for w0 in range(0, W, wt):
         tile = keys_all[w0 : w0 + wt]
         buckets = _bucket_accumulate_fused(curve, xs, ys, zs, tile)
+        if fold is not None:
+            buckets = fold(buckets, curve.add)
         sums.append(_bucket_reduce_fused(curve, buckets))
         del buckets
     sums = tuple(torch.cat(parts, dim=0) for parts in zip(*sums))
     return _horner(curve, sums, W)
 
 
-def _scan_sums(curve, points, keys_all, precomp=None):
+def _scan_sums(curve, points, keys_all, precomp=None, fold=None):
     """The scan path's window sums of rows of signed sort keys: keys_all
     (R, n), one row per window (of one MSM or of several) -> (L, R) x3.
     The planes are `precomp`, or packed here; the points are padded to a
     power of two and to COLS at the sink key; the rows go through in
-    tiles of `_window_tile`."""
+    tiles of `_window_tile`, each tile's buckets through `fold`."""
     if precomp is None:
         precomp = bucket_kernel.pack_points(curve, *points)
     packed, is_inf = precomp
     n = packed.shape[0]
-    n_pad = max(COLS, 1 << (n - 1).bit_length() if n > 1 else COLS)
-    n_pad = -(-n_pad // COLS) * COLS
+    n_pad = _padded_size(n, COLS)
     if n_pad != n:
         extra = n_pad - n
         packed = torch.cat([packed, packed.new_zeros((extra, packed.shape[1]))])
@@ -459,18 +478,19 @@ def _scan_sums(curve, points, keys_all, precomp=None):
             (keys_all.shape[0], extra), 2 * SIGNED_NBUCKETS)], dim=1)
     R = keys_all.shape[0]
     wt = _window_tile(n_pad, R)
-    sums = [_window_sums_packed(curve, packed, is_inf, keys_all[w0:w0 + wt])
+    sums = [_window_sums_packed(curve, packed, is_inf, keys_all[w0:w0 + wt],
+                                fold)
             for w0 in range(0, R, wt)]
     return tuple(torch.cat(parts, dim=1) for parts in zip(*sums))
 
 
-def _msm_scan(curve, points, scalar_limbs, precomp=None):
+def _msm_scan(curve, points, scalar_limbs, precomp=None, fold=None):
     """The scan path (reference `pippenger.py:692-741`): signed sort keys
     (recoded before padding), the window sums (`_scan_sums`), Horner.  G1
     only; the affine input contract (z in {0, one})."""
     W = scalar_limbs.shape[1]
     sums = _scan_sums(curve, points, _signed_sort_keys(scalar_limbs).T,
-                      precomp)
+                      precomp, fold)
     out = _horner_dispatch(curve, sums, W)  # (L, 1) x3
     return tuple(a[:, 0] for a in out)
 
@@ -614,3 +634,55 @@ def msm_host_input(curve, affine_points, scalars):
                         device=curve.device)
     out = msm(curve, P, S)
     return curve.decode_points(tuple(a[None] for a in out))[0]
+
+
+# ---------------------------------------------------------------------------
+# Multi-card sharded MSM
+# ---------------------------------------------------------------------------
+
+
+def _gather_fold(mesh, axis_name, parts, add):
+    """All-gather a tuple of equal-shaped tensors over the mesh axis (one
+    collective) and fold the D copies in rank order with `add`."""
+    k = len(parts)
+    mine = torch.stack(parts)
+    got = all_gather_rows(mesh, mine, axis_name).reshape(
+        (-1, k) + mine.shape[1:])
+    acc = tuple(got[0, c] for c in range(k))
+    for d in range(1, got.shape[0]):
+        acc = add(acc, tuple(got[d, c] for c in range(k)))
+    return acc
+
+
+def sharded_msm(curve, points, scalar_limbs, mesh, axis_name="shard"):
+    """One MSM split over the ranks of a mesh axis; every rank calls it
+    with the same global inputs and returns the same projective point.
+
+    points: (X, Y, Z), each (n, ...), and scalar_limbs (n, W) raw base-2^12
+    limbs, as numpy arrays or tensors; each rank moves only its block of
+    rows to the curve's device, the last blocks filled up with identities
+    at scalar 0.  The block takes `msm`'s route with the sum over the
+    ranks between the bucket scan and the reduce: G1 on the card the scan
+    route (its bucket arrays all-gathered and folded by B1 on the planes),
+    G2 on the card the fused route (folded by B7), and CPU tensors the
+    plain MSM, whose D partial points are all-gathered and folded."""
+    D, rank = axis_size(mesh, axis_name), axis_rank(mesh, axis_name)
+    dev = curve.device
+    n, W = scalar_limbs.shape
+    s = max(1, -(-n // D))
+    lo, hi = min(rank * s, n), min((rank + 1) * s, n)
+    pts = tuple(torch.as_tensor(a[lo:hi], device=dev) for a in points)
+    S = torch.as_tensor(scalar_limbs[lo:hi], device=dev)
+    if hi - lo < s:
+        ident = curve.identity((s - (hi - lo),))
+        pts = tuple(torch.cat([a, e]) for a, e in zip(pts, ident))
+        S = torch.cat([S, S.new_zeros((s - (hi - lo), W))])
+
+    def fold(parts, add):
+        return _gather_fold(mesh, axis_name, parts, add)
+
+    if not _use_pipeline(dev):
+        return fold(_msm_plain(curve, pts, S), curve.add)
+    if _use_scan_path(curve):
+        return _msm_scan(curve, pts, S, fold=fold)
+    return _msm_fused(curve, pts, S, fold=fold)

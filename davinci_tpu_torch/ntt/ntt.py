@@ -1,13 +1,15 @@
 """Number-theoretic transform (radix-2) over SNARK scalar fields: the
 quotient-polynomial transforms inside Groth16 proving.  Counterpart of
-`davinci_tpu/ntt/ntt.py` (the single-device transforms).
+`davinci_tpu/ntt/ntt.py`.
 
 Constant-geometry Stockham DIF: every stage halves, butterflies,
 gathers twiddles and permutes with host-precomputed (logn, n) permutation
 and (logn, n/2) twiddle-exponent tables; natural order in and out.  Data
 is (..., n, L) int32 Montgomery limbs at the boundary and stays in wide
 limbs across the stages; every product is `DeviceField.mul` (kernel B6
-on CUDA tensors).
+on CUDA tensors).  `sharded_ntt` runs the same transform over the ranks
+of a mesh axis (`parallel/mesh.py`) as Bailey's four steps, each rank
+holding one natural-order block.
 """
 
 from __future__ import annotations
@@ -17,7 +19,18 @@ import functools
 import numpy as np
 import torch
 
-from davinci_tpu_torch.ff.mod import from_wide, get_device_field, to_wide
+from davinci_tpu_torch.ff.mod import (
+    carry_fix,
+    from_wide,
+    get_device_field,
+    to_wide,
+)
+from davinci_tpu_torch.parallel.mesh import (
+    all_to_all_rows,
+    axis_rank,
+    axis_size,
+    reduce_scatter_rows,
+)
 
 
 @functools.lru_cache(maxsize=16)
@@ -134,6 +147,65 @@ class DeviceNTT:
         ninv = pow(n, -1, self.spec.p)
         x = self._butterflies(x, self._wpow(winv, n), n)
         return self.df.mul(x, self.df.encode_scalar(ninv))
+
+    # -- sharded transforms (multi-card) ------------------------------------
+    #
+    # Bailey four-step NTT over a mesh axis of D ranks, rank b holding rows
+    # [b n2, (b+1) n2) of the natural order, n2 = n / D: (1) all_to_all
+    # reshards the natural blocks to the strided decomposition (rank b gets
+    # x[b + D k]), (2) local length-n2 Stockham transforms with root w^D,
+    # (3) the per-rank twiddles w^(b k2), (4) the cross-rank length-D DFT
+    # as D scaled copies summed by reduce_scatter, whose output lands in
+    # natural blocks.  Each collective moves n elements.
+
+    def _shard_tables(self, n: int, D: int, w: int, b: int):
+        """Rank b's tables for a size-n transform over D ranks: the
+        twiddles (n2, L) [w^(b k2)] and the cross-DFT weights (D, L)
+        [w^(n2 b k1)], Montgomery (the reference's (D, ...) tables at
+        row b), from the cached power tables."""
+        p = self.spec.p
+        n2 = n // D
+        return (self.power_table(pow(w, b, p), n2),
+                self.power_table(pow(w, n2 * b, p), D))
+
+    def sharded_ntt(self, x: torch.Tensor, mesh, axis_name: str = "shard",
+                    inverse: bool = False) -> torch.Tensor:
+        """Forward (or inverse) NTT of a length-n vector sharded over the
+        mesh axis: x is this rank's natural-order block (n/D, L), and so
+        is the result, limb-equal to that block of ntt()/intt()."""
+        df = self.df
+        L = df.L
+        D, b = axis_size(mesh, axis_name), axis_rank(mesh, axis_name)
+        n2 = x.shape[0]
+        n = n2 * D
+        assert n2 % D == 0, (n, D)
+        logn2 = n2.bit_length() - 1
+        if 1 << logn2 != n2:
+            raise ValueError(f"NTT block {n2} is not a power of two")
+        w, winv, ninv = self._roots(n.bit_length() - 1)
+        if inverse:
+            w = winv
+        tw, small = self._shard_tables(n, D, w, b)
+        # (1) natural blocks -> strided decomposition: chunk d of the send
+        # buffer, rows x[j D + d], goes to rank d
+        g = all_to_all_rows(mesh, x.reshape(n2 // D, D, L).transpose(0, 1),
+                            axis_name)
+        # (2) local Stockham over the n2 strided rows with root w^D
+        wD = pow(w, D, self.spec.p)
+        a = self._butterflies(g.reshape(n2, L), self._wpow(wD, n2), n2)
+        # (3) per-rank twiddle w^(b k2)
+        a = df.mul(a, tw)
+        # (4) cross-rank DFT over b: D scaled copies, summed and scattered
+        contrib = df.mul(a[None], small[:, None, :])  # (D, n2, L)
+        out = reduce_scatter_rows(mesh, contrib.reshape(D * n2, L), axis_name)
+        # the sum adds limb columns without reduction (a value below D p,
+        # limbs below D 2^12): one carry pass, then the product by 1 or
+        # 1/n, the raw operand first (B6 takes a raw value below R there)
+        return df.mul(carry_fix(out, L),
+                      df.encode_scalar(ninv if inverse else 1))
+
+    def sharded_intt(self, x, mesh, axis_name: str = "shard"):
+        return self.sharded_ntt(x, mesh, axis_name, inverse=True)
 
     # -- coset helpers (quotient polynomial) --------------------------------
 

@@ -39,9 +39,11 @@ R = F.BLS12_381_R
 
 
 def test_msm_package_exports():
-    assert port_msm.__all__ == ["msm", "msm_host_input", "msm_many"]
+    assert port_msm.__all__ == ["msm", "msm_host_input", "msm_many",
+                                "sharded_msm"]
     assert port_msm.msm_many is pp.msm_many
     assert port_msm.msm_host_input is pp.msm_host_input
+    assert port_msm.sharded_msm is pp.sharded_msm
 
 
 def test_msm_many_scan_route_matches_reference(monkeypatch):
