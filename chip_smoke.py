@@ -227,9 +227,14 @@ runs phase 5 and phase 10, c2's flow without the sequencer: its witness
 [10a], one host build [10b], setup through a store [10c] and one steady
 reuse prove with its kernel calls replayed [10d]; then the sequencer's
 per-vote route at full size (`sequencer/provers.py`'s `_c2_prove`): `prove_and_verify_committed`
-(one build more, re-solved through the `_refinalize` hook), two more
-steady reuse proves, and a second store on the same directory that must
-load with no setup, then prove and verify, each with 10d's record (the
+(one build more, re-solved through the `_refinalize` hook) [10e]; six
+more steady reuse proves, which time the upload of the key sets above a
+segment three ways, each twice in the order resident, port, synchronous,
+synchronous, port, resident [10g]: the whole sets kept on the card, as
+before the port streamed them (uploaded before the timer); the port's
+own streaming; each segment copied on the compute stream as its MSM
+starts; and a second store on the same directory that must load with
+no setup, then prove and verify [10f], each with 10d's record (the
 replay against the plain versions is 10d's alone).
 
     python3 chip_smoke.py --c3
@@ -242,10 +247,11 @@ so the dummy carries phase 5's c1 proof and inputs hash) [11e], c3 with
 phase 10's proof as the one real vote and the dummy in the other 59
 slots [11b], setup on the card in memory [11c], `prove_and_verify`
 [11d] and one more prove [11f], each verified and refused with the batch
-hash + 1, then that key written through the store (the host's resident
-set sampled around the write) and a second store on the same directory
-that must load it with no setup, then prove and verify [11g] (no kernel
-replay).
+hash + 1, then that key written through the store a section at a time
+(the host's resident set before, at its peak and after the write) and
+a second store on the same directory that must load it with no setup,
+then prove and verify [11g] (no kernel replay).  From the setup on it
+prints the card's memory as `--c4` does.
 
     python3 chip_smoke.py --c4 [N]
 
@@ -258,8 +264,20 @@ each verified and refused with root_after + 1, then the key written
 through the store a section at a time and a second store on the same
 directory that must load it with no setup, prove and verify [12f] (no
 kernel replay); the host's resident set is sampled around each step and
-printed every 30 s.  At 60 votes it needs about 94 GiB of host memory
-and more than the card's 80 GB in its second prove.
+printed every 30 s.  The card's memory: after setup and after each
+prove a line of the largest live blocks of `torch.cuda.memory_snapshot()`,
+each named by its holder (a key set's upload or plane pack,
+`pk._torch_idx`, `cs._torch_csr`, the NTT's stage and power tables,
+setup's fixed-base tables; "other" for none), then a line of allocated,
+reserved and peak GiB with the bytes of each holder; inside each prove
+the allocated, reserved and peak GiB as each stage ends
+(`stage_memory`: `groth16.commit`, `groth16.refinalize`,
+`groth16.witness_reduce_dev`, `groth16.quotient_ntt`, `groth16.msms`),
+and a last line with the peak of each step (setup, the first and the
+steady prove, the store's write and load, the second store's prove).
+Key sets above a segment are streamed from the host, segment by
+segment, and never held whole on the card.  At 60 votes it needs about
+94 GiB of host memory and most of a 3,600 s call.
 
     python3 chip_smoke.py --c2-size
 
@@ -503,16 +521,50 @@ def kernel_function(record):
 
 
 class StageTimes(logging.Handler):
-    """Collects the `took_s` of the package's timed log events."""
+    """Collects the `took_s` of the package's timed log events.  With
+    `memory` (`--c3`, `--c4`), also the card's memory as each event ends
+    (`mem[name]`, GiB: allocated, reserved, and the peak since the
+    previous event, whose counter it resets), so that a prove's peak is
+    split by stage; `peak_gib` is then the peak since `reset`."""
 
-    def __init__(self):
+    def __init__(self, memory=False):
         super().__init__()
         self.took = {}
+        self.mem = {} if memory else None
+        self._peak = 0.0
 
     def emit(self, record):
         kv = getattr(record, "kv", None) or {}
-        if "took_s" in kv:
-            self.took[record.getMessage()] = kv["took_s"]
+        if "took_s" not in kv:
+            return
+        name = record.getMessage()
+        self.took[name] = kv["took_s"]
+        if self.mem is not None:
+            import torch
+
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            self._peak = max(self._peak, peak)
+            self.mem[name] = {
+                "allocated_gib": torch.cuda.memory_allocated() / 2**30,
+                "reserved_gib": torch.cuda.memory_reserved() / 2**30,
+                "peak_gib": max(peak, self.mem.get(name, {}).get(
+                    "peak_gib", 0.0))}
+
+    def reset(self):
+        """Forget the events and start the card's peak counter anew."""
+        import torch
+
+        self.took.clear()
+        if self.mem is not None:
+            self.mem.clear()
+        self._peak = 0.0
+        torch.cuda.reset_peak_memory_stats()
+
+    def peak_gib(self):
+        import torch
+
+        return max(self._peak, torch.cuda.max_memory_allocated() / 2**30)
 
 
 def host_points(spec, k, rng):
@@ -1779,10 +1831,9 @@ def reuse_prove(rt, cs, stages, tag, replay=False, what="c2",
 
     from davinci_tpu_torch import kernels as K
 
-    stages.took.clear()
     for k in K.KERNELS:
         k.launches = 0
-    torch.cuda.reset_peak_memory_stats()
+    stages.reset()
     cap = Capture(Capture.PROVE, largest=True)
     t0 = time.perf_counter()
     with cap if replay else contextlib.nullcontext():
@@ -1793,8 +1844,10 @@ def reuse_prove(rt, cs, stages, tag, replay=False, what="c2",
                         for name in COMMITTED_STAGES},
            "launches": {k.name: k.launches for k in K.KERNELS
                         if k.name in kernels},
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "peak_mem_gib": stages.peak_gib(),
            "inputs_held_for_replay": replay}
+    if stages.mem is not None:
+        rec["stage_memory"] = dict(stages.mem)
     rec["rest_s"] = rec["prove_s"] - sum(
         v or 0 for v in rec["stages_s"].values())
     for name, n in rec["launches"].items():
@@ -1817,6 +1870,81 @@ def reuse_prove(rt, cs, stages, tag, replay=False, what="c2",
         rec["replay_s"] = time.perf_counter() - t0
         del cap
     return rec, proof
+
+
+def resident_uploads(bases, spans, device):
+    """The segments as before streaming: slices of the whole set, uploaded
+    once and kept on the key (`EncodedBases.device`)."""
+    arrs = bases.device(device)
+    for ofs, hi in spans:
+        yield tuple(a[ofs:hi] for a in arrs)
+
+
+def synchronous_uploads(bases, spans, device):
+    """Each segment copied from the host arrays on the compute stream when
+    its MSM starts: no helper thread, no side stream."""
+    import torch
+
+    for ofs, hi in spans:
+        yield tuple(torch.from_numpy(a[ofs:hi]).to(device)
+                    for a in (bases.x, bases.y, bases.z))
+
+
+def streaming_phase(rt, cs, stages, order=("resident", "port", "synchronous",
+                                           "synchronous", "port",
+                                           "resident")):
+    """[10g] c2's steady reuse prove once for each entry of `order`, each
+    verified and refused, with the segments of every set above a segment
+    got to the card one way (`groth16.core._segment_uploads` replaced for
+    the prove): `resident` (`resident_uploads`, the whole sets uploaded
+    before the timer, as a steady prove found them before streaming),
+    `port` (the port's own) or `synchronous` (`synchronous_uploads`).
+    Returns the records, and each way's mean prove and `groth16.msms`
+    seconds over `resident`'s."""
+    from davinci_tpu_torch.groth16 import core
+    from davinci_tpu_torch.groth16.bases import EncodedBases
+
+    g16 = rt.g16
+    big = [b for b in vars(rt.pk).values() if isinstance(b, EncodedBases)
+           and len(b) > (g16.MSM_SEGMENT_G2 if b.x.ndim == 3
+                         else g16.MSM_SEGMENT)]
+    ways = {"resident": resident_uploads, "port": core._segment_uploads,
+            "synchronous": synchronous_uploads}
+    runs = {way: [] for way in order}
+    for way in order:
+        for b in big:
+            if way == "resident":
+                b.device(g16.device)
+            else:
+                b.drop_device()
+        core._segment_uploads = ways[way]
+        try:
+            rec, _ = reuse_prove(rt, cs, stages, f"[10g] {way}")
+        finally:
+            core._segment_uploads = ways["port"]
+        runs[way].append(rec)
+    for b in big:
+        b.drop_device()
+
+    def mean(way, key):
+        vals = [r["prove_s"] if key is None else r["stages_s"][key]
+                for r in runs[way]]
+        return sum(vals) / len(vals)
+
+    out = {"runs": runs, "over_resident": {
+        way: {"prove": mean(way, None) / mean("resident", None),
+              "msms": mean(way, "groth16.msms")
+              / mean("resident", "groth16.msms"),
+              "commit": mean(way, "groth16.commit")
+              / mean("resident", "groth16.commit")}
+        for way in runs}}
+    prove_s = {way: [r["prove_s"] for r in rs] for way, rs in runs.items()}
+    msms_s = {way: [r["stages_s"]["groth16.msms"] for r in rs]
+              for way, rs in runs.items()}
+    say(f"[10g] c2's steady prove by upload, each way's mean over "
+        f"resident's: {json.dumps(out['over_resident'])}; prove s "
+        f"{json.dumps(prove_s)}, msms s {json.dumps(msms_s)}")
+    return out
 
 
 def c2_phase(stages, c1, root, replay=True):
@@ -2000,6 +2128,74 @@ def key_bytes(pk):
     return host, card
 
 
+def tensors_in(obj):
+    """The tensors in `obj`, a tensor or nested tuples, lists and dicts."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (tuple, list)):
+        return [t for part in obj for t in tensors_in(part)]
+    return []
+
+
+def card_memory(tag, when, g16=None, pk=None, cs=None, top=12):
+    """One line of the card's memory `when` (after a step of `--c3` or
+    `--c4`): allocated and reserved GiB (each step's peak is the
+    step's record's, `StageTimes.peak_gib`); the bytes each long-lived holder keeps there (the key's
+    base sets uploaded or packed, `pk._torch_idx`, `cs._torch_csr`, the
+    NTT's stage and power tables, setup's fixed-base tables); and the
+    `top` largest live blocks of `torch.cuda.memory_snapshot()`, each
+    named by the holder whose tensor lies in it ("other": a tensor of
+    no holder above), on a line before.  Returns the record."""
+    import torch
+
+    from davinci_tpu_torch.groth16.bases import EncodedBases
+
+    holders = {}
+    if pk is not None:
+        for name, b in vars(pk).items():
+            if isinstance(b, EncodedBases):
+                holders[f"pk.{name}"] = tensors_in(
+                    [*b._dev.values(), *b._packed.values()])
+        holders["pk._torch_idx"] = tensors_in(
+            (getattr(pk, "_torch_idx", None) or (None, ()))[1])
+    if cs is not None:
+        csr = getattr(cs, "_torch_csr", None)
+        holders["cs._torch_csr"] = tensors_in(csr.parts if csr else [])
+    if g16 is not None:
+        holders["ntt._tables"] = tensors_in(g16.ntt._tables)
+        holders["ntt._powers"] = tensors_in(g16.ntt._powers)
+        holders["g16._tables"] = tensors_in(g16._tables)
+    spans, held = [], {}
+    for name, ts in holders.items():
+        storages = {t.untyped_storage().data_ptr():
+                    t.untyped_storage().nbytes() for t in ts}
+        held[name] = sum(storages.values()) / 2**30
+        spans += [(ptr, ptr + size, name) for ptr, size in storages.items()]
+    blocks = []
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated":
+                start = b.get("address", addr)
+                name = next((h for lo, hi, h in spans
+                             if start <= lo < start + b["size"]), "other")
+                blocks.append((b["size"] / 2**30, name))
+            addr += b["size"]
+    blocks.sort(reverse=True)
+    largest = [[round(g, 4), h] for g, h in blocks[:top]]
+    say(f"{tag} largest live blocks {when} (GiB, holder; {len(blocks)} "
+        f"blocks): {json.dumps(largest)}")
+    rec = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+           "reserved_gib": torch.cuda.memory_reserved() / 2**30,
+           "holders_gib": held}
+    say(f"{tag} card memory {when}: {json.dumps(rec)}")
+    return {**rec, "largest_gib": largest}
+
+
 def store_setup(cid, cs, root, stages, tag, key=None, curve="bw6_761",
                 what="c3", setup_kernels=C3_SETUP_KERNELS):
     """[11c] `what` (c3; c4, c5 on BN254) set up on the card through the
@@ -2018,8 +2214,8 @@ def store_setup(cid, cs, root, stages, tag, key=None, curve="bw6_761",
 
     for k in K.KERNELS:
         k.launches = 0
-    stages.took.clear()
     gc.collect()
+    stages.reset()
     t0 = time.perf_counter()
     with HostPeak() as host:
         say(f"{tag} host resident {host.start_gib:.2f} GiB before the store")
@@ -2034,7 +2230,9 @@ def store_setup(cid, cs, root, stages, tag, key=None, curve="bw6_761",
            "structure_hash": rt.structure_hash,
            "setup_launches": {k.name: k.launches for k in K.KERNELS
                               if k.launches},
-           "host_rss_gib": host.start_gib, "host_peak_gib": host.peak_gib}
+           "host_rss_gib": host.start_gib, "host_peak_gib": host.peak_gib,
+           "host_rss_after_gib": HostPeak.rss_gib(),
+           "peak_mem_gib": stages.peak_gib()}
     check(out["artifacts_setup_s"] is not None,
           f"{what}'s store ran its setup")
     check(rt.g16.device.type == "cuda", f"{what}'s Groth16 is on the card")
@@ -2048,8 +2246,38 @@ def store_setup(cid, cs, root, stages, tag, key=None, curve="bw6_761",
         f" pk.bin {out['pk_bin_bytes']} B, vk.bin {out['vk_bin_bytes']} B,"
         f" launches {out['setup_launches']}, host resident"
         f" {out['host_rss_gib']:.2f} GiB before, {out['host_peak_gib']:.2f}"
-        f" GiB at the peak")
+        f" GiB at the peak, {out['host_rss_after_gib']:.2f} GiB after; card"
+        f" peak {out['peak_mem_gib']:.2f} GiB")
     return rt, out
+
+
+def second_store(cid, cs, root, stages, tag, prove, curve, what):
+    """A second store on `root` that must load `what`'s key (circuit
+    `cid`) with no setup, then `prove(runtime)` (a verified, refused
+    prove; its record): the load's seconds, the host's peak and the card's
+    peak during it, and the card's memory after the prove.  Returns the
+    results."""
+    import gc
+
+    from davinci_tpu_torch.circuits.artifacts import ArtifactStore
+
+    gc.collect()
+    stages.reset()
+    with HostPeak() as host:
+        rt = ArtifactStore(root).load_or_setup(cid, curve, cs)
+    check("artifacts.load" in stages.took
+          and "artifacts.setup" not in stages.took,
+          f"the second store loaded {what}'s key with no setup")
+    out = {"load_s": stages.took["artifacts.load"],
+           "load_host_rss_gib": host.start_gib,
+           "load_host_peak_gib": host.peak_gib,
+           "load_peak_mem_gib": stages.peak_gib()}
+    out["prove"] = prove(rt)
+    out["memory"] = card_memory(tag, "after the second store's prove",
+                                rt.g16, rt.pk, cs)
+    say(f"{tag} a second store loaded {what}'s key with no setup in "
+        f"{out['load_s']} s, proved and verified")
+    return out
 
 
 def setup_in_memory(params, cs, stages, tag, curve="bw6_761", what="c3",
@@ -2071,7 +2299,7 @@ def setup_in_memory(params, cs, stages, tag, curve="bw6_761", what="c3",
     for k in K.KERNELS:
         k.launches = 0
     gc.collect()
-    torch.cuda.reset_peak_memory_stats()
+    stages.reset()
     g16 = Groth16(curve)
     t0 = time.perf_counter()
     with HostPeak() as host:
@@ -2080,7 +2308,7 @@ def setup_in_memory(params, cs, stages, tag, curve="bw6_761", what="c3",
     out = {"setup_s": time.perf_counter() - t0, "domain_log": pk.domain_log,
            "setup_launches": {k.name: k.launches for k in K.KERNELS
                               if k.launches},
-           "setup_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "setup_peak_mem_gib": stages.peak_gib(),
            "host_rss_gib": host.start_gib, "host_peak_gib": host.peak_gib}
     out["key_host_bytes"], out["key_card_bytes"] = key_bytes(pk)
     for name in setup_kernels:
@@ -2107,10 +2335,9 @@ def prove_verify(rt, cs, stages, tag, replay=False, what="c3",
 
     from davinci_tpu_torch import kernels as K
 
-    stages.took.clear()
     for k in K.KERNELS:
         k.launches = 0
-    torch.cuda.reset_peak_memory_stats()
+    stages.reset()
     cap = Capture(wrappers, largest=True)
     t0 = time.perf_counter()
     with cap if replay else contextlib.nullcontext():
@@ -2123,8 +2350,10 @@ def prove_verify(rt, cs, stages, tag, replay=False, what="c3",
            "stages_s": {name: stages.took.get(name) for name in C3_STAGES},
            "launches": {k.name: k.launches for k in K.KERNELS
                         if k.name in kernels},
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "peak_mem_gib": stages.peak_gib(),
            "inputs_held_for_replay": replay}
+    if stages.mem is not None:
+        rec["stage_memory"] = dict(stages.mem)
     rec["rest_s"] = (prove_s or total) - sum(
         v or 0 for v in rec["stages_s"].values())
     for name, n in rec["launches"].items():
@@ -2363,10 +2592,9 @@ def c4_first_prove(rt, cs, stages, tag):
 
     from davinci_tpu_torch import kernels as K
 
-    stages.took.clear()
     for k in K.KERNELS:
         k.launches = 0
-    torch.cuda.reset_peak_memory_stats()
+    stages.reset()
     public = cs.public_values()
     t0 = time.perf_counter()
     with HostPeak() as host:
@@ -2378,8 +2606,10 @@ def c4_first_prove(rt, cs, stages, tag):
                         + ("circuit.prove_committed",)},
            "launches": {k.name: k.launches for k in K.KERNELS
                         if k.name in BN254_KERNELS},
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "peak_mem_gib": stages.peak_gib(),
            "host_rss_gib": host.start_gib, "host_peak_gib": host.peak_gib}
+    if stages.mem is not None:
+        rec["stage_memory"] = dict(stages.mem)
     for name, n in rec["launches"].items():
         check(n > 0, f"{name} was not launched by c4's committed prove")
     check(not rt.verify_committed(proof, bumped(public, 1)),
@@ -3152,14 +3382,17 @@ def c4_only(n_votes):
     the key written through the store, a section at a time, and a second
     store on the same directory that must load it with no setup, prove
     and verify [12f] (no kernel replay); the host's resident set sampled
-    around each step and printed every 30 s (`rss_trail`)."""
+    around each step and printed every 30 s (`rss_trail`).  The card's
+    memory after setup, after each prove (`card_memory`: the holders and
+    the largest live blocks) and by stage inside each prove
+    (`StageTimes(memory=True)`), and the peak of each step on a line of
+    its own."""
     import gc
     import tempfile
 
     import torch
 
     from davinci_tpu_torch import log
-    from davinci_tpu_torch.circuits.artifacts import ArtifactStore
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -3168,7 +3401,7 @@ def c4_only(n_votes):
     rss_trail(t_run)
     build_phase([(src, limbs) for src in ("point_add", "bucket", "mont_mul")
                  for limbs in (22, 32)])
-    stages = StageTimes()
+    stages = StageTimes(memory=True)
     log.init()
     logging.getLogger("davinci").addHandler(stages)
     params, w, _, _, out = sequencer_c4_witness(n_votes, "[12a]")
@@ -3180,35 +3413,41 @@ def c4_only(n_votes):
         rt, g16, pk, vk, out["in_memory"] = setup_in_memory(
             params, cs, stages, "[12b]", curve="bn254", what="c4",
             setup_kernels=BN254_SETUP_KERNELS)
+        mem = out["card_memory"] = {
+            "setup": card_memory("[12b]", "after setup", g16, pk, cs)}
         out["first_prove"], _ = c4_first_prove(rt, cs, stages, "[12c]")
+        mem["first_prove"] = card_memory("[12c]", "after the first prove",
+                                         g16, pk, cs)
         with HostPeak() as host:
             out["steady"], _ = reuse_prove(rt, cs, stages, "[12e]",
                                            what="c4", kernels=BN254_KERNELS,
                                            tamper=1)
         out["steady"]["host_peak_gib"] = host.peak_gib
+        mem["steady"] = card_memory("[12e]", "after the steady prove",
+                                    g16, pk, cs)
         del rt
         gc.collect()
-        _, out["store"] = store_setup(
+        rt, out["store"] = store_setup(
             params.circuit_id(), cs, root, stages, "[12b]",
             key=(g16, pk, vk), curve="bn254", what="c4")
-        del g16, pk, vk
-        gc.collect()
-        stages.took.clear()
-        with HostPeak() as host:
-            rt2 = ArtifactStore(root).load_or_setup(params.circuit_id(),
-                                                    "bn254", cs)
-        check("artifacts.load" in stages.took
-              and "artifacts.setup" not in stages.took,
-              "the second store loaded c4's key with no setup")
-        out["second_store_load_s"] = stages.took["artifacts.load"]
-        out["second_store_load_host_peak_gib"] = host.peak_gib
-        out["second_store"], _ = reuse_prove(
-            rt2, cs, stages, "[12f]", what="c4", kernels=BN254_KERNELS,
-            tamper=1)
-        say(f"[12f] a second store loaded c4's key with no setup in "
-            f"{out['second_store_load_s']} s, proved and verified")
+        # the written key leaves the host before the second store reads it
+        del rt, g16, pk, vk
+        out["second_store"] = second_store(
+            params.circuit_id(), cs, root, stages, "[12f]",
+            lambda rt2: reuse_prove(rt2, cs, stages, "[12f]", what="c4",
+                                    kernels=BN254_KERNELS, tamper=1)[0],
+            curve="bn254", what="c4")
     finally:
         shutil.rmtree(root)
+    out["card_peak_gib"] = {
+        "setup": out["in_memory"]["setup_peak_mem_gib"],
+        "first_prove": out["first_prove"]["peak_mem_gib"],
+        "steady": out["steady"]["peak_mem_gib"],
+        "store_write": out["store"]["peak_mem_gib"],
+        "store_load": out["second_store"]["load_peak_mem_gib"],
+        "second_store_prove": out["second_store"]["prove"]["peak_mem_gib"]}
+    say(f"[12f] c4 at {n_votes} votes, the card's peak of each step, GiB: "
+        f"{json.dumps(out['card_peak_gib'])}")
     out["run_s"] = time.perf_counter() - t_run
     say(json.dumps({"c4": out}))
     say(json.dumps({"ok": True, "device": {
@@ -3399,8 +3638,7 @@ def c2_only():
         cs = built.pop()
         say(f"[10e] prove_and_verify_committed: "
             f"{out['first_prove_and_verify_s']:.3f} s (one build)")
-        out["steady"] += [reuse_prove(rt, cs, stages, f"[10e] {i}")[0]
-                          for i in range(2)]
+        out["streaming"] = streaming_phase(rt, cs, stages)
 
         stages.took.clear()
         rt2 = ArtifactStore(root).load_or_setup(C2_ID, "bls12_377", cs)
@@ -3427,11 +3665,12 @@ def c3_only():
     proof [11e], phase 10's proof as the one real vote, the build [11b],
     setup on the card in memory [11c], `prove_and_verify` [11d] and one
     more prove [11f], each verified, then the key written through the
-    store [11c], whose write holds the whole key in host memory, and a
-    second store on the same directory that must load it with no setup,
-    prove and verify [11g] (no kernel replay).  The proves come before the
-    store's write so that a host that cannot hold the write still shows
-    them."""
+    store a section at a time [11c] (the host's resident set before, at
+    its peak and after) and a second store on the same directory that
+    must load it with no setup, prove and verify [11g] (no kernel
+    replay).  From the setup on, the card's memory after each step
+    (`card_memory`), by stage inside each prove, and the peak of each
+    step on a line of its own."""
     import gc
     import tempfile
 
@@ -3441,7 +3680,6 @@ def c3_only():
     from davinci_tpu_torch import kernels as K
     from davinci_tpu_torch import log
     from davinci_tpu_torch import spec as protocol
-    from davinci_tpu_torch.circuits.artifacts import ArtifactStore
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -3468,27 +3706,34 @@ def c3_only():
         del c2_rt
         params, cs, out = c3_build(c2_vk, vote, dummy,
                                    protocol.VOTES_PER_BATCH, "[11b]")
+        stages.mem = {}  # the card's memory by stage from here on
         rt, g16, pk, vk, out["in_memory"] = setup_in_memory(
             params, cs, stages, "[11c]")
+        mem = out["card_memory"] = {
+            "setup": card_memory("[11c]", "after setup", g16, pk, cs)}
         out["prove"] = [prove_verify(rt, cs, stages, "[11d]"),
                         prove_verify(rt, cs, stages, "[11f]")]
+        mem["prove"] = card_memory("[11f]", "after the proves", g16, pk, cs)
         del rt
         gc.collect()
-        _, out["store"] = store_setup(params.circuit_id(), cs, root, stages,
-                                      "[11c]", key=(g16, pk, vk))
-        del g16, pk, vk
-        stages.took.clear()
-        rt2 = ArtifactStore(root).load_or_setup(params.circuit_id(),
-                                                "bw6_761", cs)
-        check("artifacts.load" in stages.took
-              and "artifacts.setup" not in stages.took,
-              "the second store loaded c3's key with no setup")
-        out["second_store_load_s"] = stages.took["artifacts.load"]
-        out["second_store"] = prove_verify(rt2, cs, stages, "[11g]")
-        say(f"[11g] a second store loaded c3's key with no setup in "
-            f"{out['second_store_load_s']} s, proved and verified")
+        rt, out["store"] = store_setup(params.circuit_id(), cs, root,
+                                       stages, "[11c]", key=(g16, pk, vk))
+        # the written key leaves the host before the second store reads it
+        del rt, g16, pk, vk
+        out["second_store"] = second_store(
+            params.circuit_id(), cs, root, stages, "[11g]",
+            lambda rt2: prove_verify(rt2, cs, stages, "[11g]"),
+            curve="bw6_761", what="c3")
     finally:
         shutil.rmtree(root)
+    out["card_peak_gib"] = {
+        "setup": out["in_memory"]["setup_peak_mem_gib"],
+        "proves": [p["peak_mem_gib"] for p in out["prove"]],
+        "store_write": out["store"]["peak_mem_gib"],
+        "store_load": out["second_store"]["load_peak_mem_gib"],
+        "second_store_prove": out["second_store"]["prove"]["peak_mem_gib"]}
+    say(f"[11g] c3 at {protocol.VOTES_PER_BATCH} slots, the card's peak of "
+        f"each step, GiB: {json.dumps(out['card_peak_gib'])}")
     out["run_s"] = time.perf_counter() - t_run
     say(json.dumps({"c3": out}))
     say(json.dumps({"ok": True, "device": {

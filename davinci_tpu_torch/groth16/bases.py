@@ -3,8 +3,11 @@
 
 EncodedBases stores the device encoding itself -- (X, Y, Z) int32
 Montgomery limb arrays in the MSM affine-input contract (z in {0, one}) --
-as numpy on the host, uploaded to a device once and cached there, with
-the scan-path MSM's plane pack of the G1 bases beside it.
+as numpy on the host.  A set of at most one segment
+(`Groth16.MSM_SEGMENT`, `MSM_SEGMENT_G2`) is uploaded to a device once
+and cached there, with the scan-path MSM's plane pack of the G1 bases
+beside it; a larger set is streamed from the host a segment at a time
+and never cached (`Groth16._msm_enc_segmented`).
 """
 
 from __future__ import annotations

@@ -24,7 +24,9 @@ is the single-device one on every rank.
 
 from __future__ import annotations
 
+import functools
 import random as _random
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -165,6 +167,48 @@ def _fixed_base_mul(dc, tx, ty, tz, S):
                        tuple(p[half:] for p in parts))
         Wp = half
     return tuple(p[0] for p in parts)
+
+
+@functools.cache
+def _copy_stream(device):
+    """The side stream of `_segment_uploads` on a CUDA device: one for
+    the process, so that the caching allocator reuses its segments'
+    blocks."""
+    return torch.cuda.Stream(device)
+
+
+def _segment_uploads(bases: EncodedBases, spans, device):
+    """Yield (X, Y, Z) of `bases[ofs:hi]` on `device` for each (ofs, hi)
+    of `spans`, each copied from the host arrays when it is needed and
+    never cached.  A helper thread copies the next span while the caller
+    computes on the current one (on CUDA on a side stream, which the
+    caller's stream then waits for), so at most two spans are on the
+    device at once."""
+    side = _copy_stream(device) if device.type == "cuda" else None
+
+    def upload(span):
+        ofs, hi = span
+        if side is None:
+            return tuple(torch.from_numpy(a[ofs:hi]).to(device)
+                         for a in (bases.x, bases.y, bases.z)), None
+        with torch.cuda.stream(side):
+            arrs = tuple(torch.from_numpy(a[ofs:hi]).to(device,
+                                                        non_blocking=True)
+                         for a in (bases.x, bases.y, bases.z))
+            return arrs, side.record_event()
+
+    with ThreadPoolExecutor(1) as pool:
+        nxt = pool.submit(upload, spans[0]) if spans else None
+        for i in range(len(spans)):
+            arrs, copied = nxt.result()
+            if i + 1 < len(spans):
+                nxt = pool.submit(upload, spans[i + 1])
+            if side is not None:
+                main = torch.cuda.current_stream(device)
+                main.wait_event(copied)
+                for a in arrs:  # freed only once the caller's work is done
+                    a.record_stream(main)
+            yield arrs
 
 
 class ProveError(ValueError, AssertionError):
@@ -589,12 +633,16 @@ class Groth16:
         pk._torch_idx = (self.device, idx)
         return idx
 
-    # G2 sets above this run as segments whose partials fold on the device
+    # G1 (G2) sets above these run segment by segment, streamed from the
+    # host (`_msm_enc_segmented`); smaller ones stay on the device
     MSM_SEGMENT = 1 << 18
     MSM_SEGMENT_G2 = 1 << 16
 
     def _msm_enc(self, dc, gspec, bases: EncodedBases, scalars):
-        """MSM over pre-encoded bases at the set's natural shape.
+        """MSM over pre-encoded bases at the set's natural shape: a set of
+        at most one segment is uploaded once and kept on the device with
+        its plane pack, a larger one (and every set on a mesh) streamed
+        (`_msm_enc_segmented`).
 
         `scalars` is either a list of host ints or an (n, W) raw base-2^12
         limb array (numpy or a tensor, e.g. the quotient straight off the
@@ -610,51 +658,45 @@ class Groth16:
         if n == 0 or not bool(S_full.any()):
             return gspec.infinity()
         seg = self.MSM_SEGMENT_G2 if dc.ops.coord_ndim == 2 else self.MSM_SEGMENT
-        if self.mesh is not None:
-            return self._msm_enc_sharded(dc, gspec, bases, S_full, seg)
-        if n <= seg:
-            # fixed bases: the scan path's plane pack is made once per key
-            precomp = (
-                bases.device_packed(dc.device, dc)
-                if pippenger._use_pipeline(dc.device)
-                and pippenger._use_scan_path(dc)
-                else None
-            )
-            out = msm(dc, bases.device(dc.device), S_full, precomp=precomp)
-            return dc.decode_points(tuple(a[None] for a in out))[0]
-        return self._msm_enc_segmented(dc, gspec, bases, S_full, seg)
+        if self.mesh is not None or n > seg:
+            return self._msm_enc_segmented(dc, gspec, bases, S_full, seg)
+        # fixed bases: the scan path's plane pack is made once per key
+        precomp = (
+            bases.device_packed(dc.device, dc)
+            if pippenger._use_pipeline(dc.device)
+            and pippenger._use_scan_path(dc)
+            else None
+        )
+        out = msm(dc, bases.device(dc.device), S_full, precomp=precomp)
+        return dc.decode_points(tuple(a[None] for a in out))[0]
 
     def _msm_enc_segmented(self, dc, gspec, bases, S_full, seg):
+        """A set above `seg` points, as the reference runs it: segment by
+        segment, each taken from the host arrays and freed after its MSM,
+        so that no such set is ever whole on the device (at a 2^24 domain
+        the five sets are about 20 GiB).  On one device `_segment_uploads`
+        uploads the segments; on a mesh each rank uploads its block of one
+        (`sharded_msm`, the bucket arrays all-gathered and merged).
+        Segments whose scalars are all zero are skipped; the partials fold
+        on the device."""
         n = len(bases)
-        arrs = bases.device(dc.device)
-        total = None
-        for ofs in range(0, n, seg):
-            hi = min(ofs + seg, n)
-            S = S_full[ofs:hi]
-            if not bool(S.any()):
-                continue
-            out = msm(dc, tuple(a[ofs:hi] for a in arrs), S)
-            out = tuple(a[None] for a in out)
-            # fold segment partials on the device; decode once at the end
-            total = out if total is None else dc.add(total, out)
-        if total is None:
-            return gspec.infinity()
-        return dc.decode_points(total)[0]
+        spans = [(ofs, min(ofs + seg, n)) for ofs in range(0, n, seg)
+                 if bool(S_full[ofs:ofs + seg].any())]
+        if self.mesh is None:
+            parts = _segment_uploads(bases, spans, dc.device)
 
-    def _msm_enc_sharded(self, dc, gspec, bases, S_full, seg):
-        """Mesh-sharded MSM (each rank uploads its block of the bases from
-        the host, the bucket arrays all-gathered and merged), segmented
-        for memory; the segments' partials fold on the device."""
-        n = len(bases)
+            def segment_msm(arrs, S):
+                return msm(dc, arrs, S)
+        else:
+            parts = (tuple(a[ofs:hi] for a in (bases.x, bases.y, bases.z))
+                     for ofs, hi in spans)
+
+            def segment_msm(arrs, S):
+                return pippenger.sharded_msm(dc, arrs, S, self.mesh,
+                                             self.mesh_axis)
         total = None
-        for ofs in range(0, n, seg):
-            hi = min(ofs + seg, n)
-            S = S_full[ofs:hi]
-            if not bool(S.any()):
-                continue
-            arrs = tuple(a[ofs:hi] for a in (bases.x, bases.y, bases.z))
-            out = pippenger.sharded_msm(dc, arrs, S, self.mesh, self.mesh_axis)
-            out = tuple(a[None] for a in out)
+        for arrs, (ofs, hi) in zip(parts, spans):
+            out = tuple(a[None] for a in segment_msm(arrs, S_full[ofs:hi]))
             total = out if total is None else dc.add(total, out)
         if total is None:
             return gspec.infinity()

@@ -12,7 +12,8 @@ constant multiplications:
     v = g0 + 2^(12L) g1 + 2^(24L) g2   (Montgomery, on the device).
 
 torch has native int64, so no 64-bit scope is needed; the CSR stays on
-the device across proves (an 80 GB card holds it beside the key).
+the device across proves.  The carries and the fold run `_ROWS` rows at
+a time, so that only the accumulator is full height.
 """
 
 from __future__ import annotations
@@ -24,6 +25,10 @@ from davinci_tpu_torch.fields import LIMB_BITS
 from davinci_tpu_torch.ff.mod import normalize
 
 _CHUNK = 1 << 18  # terms per index-add step: bounds transient conv memory
+# rows per carry-and-fold step: bounds their int64 temporaries, which at
+# a 2^24 domain and full height would be several (N, 2L + 6) tensors of
+# 6 GiB each
+_ROWS = 1 << 20
 _EXTRA = 6  # carry drain limbs: a column stays below 2^55, 55/12 < 5
 
 
@@ -115,9 +120,13 @@ def matvec_device(df, dcsr: DeviceCSR, Z_limbs, N: int):
     c2m = df.encode_scalar(pow(2, 2 * LIMB_BITS * L, r))
     out = []
     for vi, ci, ri, tl in dcsr.parts:
-        Lb = _carry_cols(_accumulate(vi, ci, ri, tl, N, Z_limbs))
-        out.append(_fold_mont(df, Lb, c1m, c2m))
-        del Lb
+        acc = _accumulate(vi, ci, ri, tl, N, Z_limbs)
+        v = torch.empty((N, L), dtype=torch.int32, device=acc.device)
+        for s in range(0, N, _ROWS):
+            v[s:s + _ROWS] = _fold_mont(df, _carry_cols(acc[s:s + _ROWS]),
+                                        c1m, c2m)
+        del acc
+        out.append(v)
     return out
 
 
